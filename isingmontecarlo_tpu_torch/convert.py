@@ -1,0 +1,44 @@
+"""Carry the JAX package's model and state across as numpy arrays, so both
+packages compute from the same inputs. The JAX PRNG key is not carried."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from isingmontecarlo_tpu_torch.sse.ising import SseState
+from isingmontecarlo_tpu_torch.sse.model import BondModel
+from isingmontecarlo_tpu_torch.sse.opstring import OpString
+
+
+def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype).contiguous()
+
+
+def model_from_numpy(*, bond_vars, is_constant, diag_w, full_w, cls, wtab,
+                     cls_full, wtab_full, offset: float, nvars: int,
+                     device: torch.device | str) -> BondModel:
+    """A :class:`BondModel` from the JAX ``BondModel``'s leaves (numpy
+    arrays named as its attributes) and its ``offset`` and ``nvars``."""
+    i32, f32 = torch.int32, torch.float32
+    return BondModel(
+        _t(bond_vars, i32, device), _t(is_constant, torch.bool, device),
+        _t(diag_w, f32, device), _t(full_w, f32, device),
+        _t(cls, i32, device), _t(wtab, f32, device),
+        _t(cls_full, i32, device), _t(wtab_full, f32, device),
+        offset=offset, nvars=nvars,
+    )
+
+
+def sse_state_from_numpy(*, bond, inputs, outputs, state,
+                         device: torch.device | str) -> SseState:
+    """An :class:`SseState` from ``bond i32[M, R]``, ``inputs/outputs
+    bool[K, M, R]`` and ``state bool[R, N]``."""
+    return SseState(
+        ops=OpString(
+            bond=_t(bond, torch.int32, device),
+            inputs=_t(inputs, torch.bool, device),
+            outputs=_t(outputs, torch.bool, device),
+        ),
+        state=_t(state, torch.bool, device),
+    )

@@ -1,0 +1,38 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
+the SSE timestep, each beside its plain PyTorch version. The library builds
+from ``csrc/`` at first use (see :mod:`._build`)."""
+
+from isingmontecarlo_tpu_torch.ops.diag_carry import (
+    carry_decisions,
+    carry_decisions_plain,
+)
+from isingmontecarlo_tpu_torch.ops.parity_kernel import (
+    parity_bits,
+    parity_bits_plain,
+)
+from isingmontecarlo_tpu_torch.ops.take_kernel import take0, take0_plain
+
+# The wrappers whose ``launches`` count the kernel launches of a run.
+KERNELS = (parity_bits, carry_decisions, take0)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+__all__ = [
+    "KERNELS",
+    "carry_decisions",
+    "carry_decisions_plain",
+    "launch_counts",
+    "parity_bits",
+    "parity_bits_plain",
+    "reset_launch_counts",
+    "take0",
+    "take0_plain",
+]

@@ -1,0 +1,146 @@
+"""Build, load and call the CUDA kernels under ``csrc/``.
+
+Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, into ``_build/`` beside the sources, and the library's file name
+carries a hash of the sources and flags, so a changed source is rebuilt. A
+missing ``nvcc`` or a failed build raises with the compiler's output.
+
+Each C entry point launches on the stream it is given, does not synchronise,
+and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+# --fmad=false: no multiply-add contraction, so every f32 expression rounds
+# as it does in the plain PyTorch versions and in XLA.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # table, idx, out, C, E, R, stream
+    "ising_take0": (_P, _P, _P, _I, _I, _I, _P),
+    # state, v_idx, tog, vq, seg (scratch), pb, sb, K, M, R, N, seg_len, stream
+    "ising_parity_bits": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # n0, u0, idp, dgp, num_ins, num_rem, insert, remove, M, R, stream
+    "ising_carry_metropolis": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libising_kernels_{h.hexdigest()[:16]}.so"
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
+    )
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels of "
+            "isingmontecarlo_tpu_torch cannot be built"
+        )
+    return path
+
+
+def build(path: Path) -> None:
+    """Compile every source into ``path``; the compiler's output (with
+    ``-Xptxas -v``'s register and shared-memory report) goes beside it as
+    ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library, built first if its sources changed."""
+    path = library_path()
+    if not path.exists():
+        build(path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ising_error_string.argtypes = (_I,)
+    lib.ising_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def use_kernel(device: torch.device) -> bool:
+    """The dispatch rule of every wrapper: the plain PyTorch version serves
+    a CPU tensor, the CUDA kernel a CUDA tensor, and nothing else is served."""
+    if device.type == "cpu":
+        return False
+    if device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+          device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.numel() >= 2**31:
+        raise ValueError(f"{name}: {t.numel()} elements exceed the int32 sizes of the C interface")
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` with ``args`` (tensors pass their data
+    pointers) on the current stream of the first tensor's device; raise if
+    the launch reports an error."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    lib = library()
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = getattr(lib, name)(*c_args, stream)
+    if status != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {status}: {lib.ising_error_string(status).decode()}"
+        )

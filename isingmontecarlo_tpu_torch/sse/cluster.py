@@ -1,0 +1,264 @@
+"""SSE cluster update (port of ``isingmontecarlo_tpu/sse/cluster.py``;
+reference ``src/sse/qmc_traits/cluster.rs``).
+
+Clusters are built over op sides: constant single-variable ops (transverse
+field ops) are cluster edges whose two sides belong to different clusters
+(``cluster.rs:276-286``); every other op's sides and legs are one cluster,
+and worldline segments join an op's output side to the next op on the same
+variable (periodic in imaginary time). Each cluster flips with probability
+1/2 times the product of its ops' weight ratios (``cluster.rs:36-172``), and
+the p=0 state is re-read from the first op on each variable.
+
+Each maximal worldline run between cluster-edge ops is one supernode
+(:func:`segment_graph`); components of the contracted graph are labelled by
+hook-and-compress union-find (:func:`hook_compress_labels`). Per-replica
+gathers on label tables go through kernel K4 (``ops.take0``).
+
+Like the JAX package, label propagation yields one cluster per connected
+component even when no constant op exists, where the reference treats the
+whole string as one cluster (``cluster.rs:98-107``): equally valid and more
+ergodic.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from isingmontecarlo_tpu_torch.ops.take_kernel import take0
+from isingmontecarlo_tpu_torch.sse.model import BondModel
+from isingmontecarlo_tpu_torch.sse.opstring import (
+    SORT_BIG, OpString, op_vars, sorted_legs, substate_index,
+)
+from isingmontecarlo_tpu_torch.sse.tables import bond_fetch
+
+# Pointer jumps per hook round. Root ids depend on this schedule, and the
+# cluster uniforms are indexed by root id, so it must equal the JAX
+# package's _N_COMPRESS for the two to draw the same flips.
+N_COMPRESS = 2
+
+
+class SegGraph(NamedTuple):
+    """Segment-contracted label problem (see :func:`segment_graph`)."""
+
+    seg_in: torch.Tensor  # i32[M, R] in-side segment id per op slot
+    seg_out: torch.Tensor  # i32[M, R]
+    u: torch.Tensor  # i32[E, R] edge endpoints (dump = S - 1)
+    v: torch.Tensor  # i32[E, R]
+    nseg: torch.Tensor  # i32[R] per-replica segment count
+    head_f: torch.Tensor  # i32[N, R] flat leg index of each var's first leg
+    #                        (K*M where the var has no legs)
+    S: int  # label-space size
+
+
+def segment_graph(ops: OpString, model: BondModel) -> SegGraph:
+    """Contract worldline runs between cluster-edge ops into supernodes.
+
+    Segment ids are break-count prefix sums over the legs sorted by
+    ``(variable, slot)`` (a new segment starts at each worldline head and
+    between the two sides of an edge op). Graph edges: one per multi-leg op
+    chaining its legs' in-side segments, plus one periodic wrap edge per
+    variable (head in-segment to tail out-segment). ``S = M + N + 1`` with a
+    trailing dump row for invalid slots."""
+    M, R = ops.bond.shape
+    K = ops.max_legs
+    KM = K * M
+    N = model.nvars
+    S = M + N + 1
+    dev = ops.bond.device
+
+    valid_op = ops.bond >= 0
+    b = ops.bond.clamp(min=0)
+    vars_kmr = op_vars(ops, model)
+    edge_t = model.is_constant & (model.arity() == 1)  # cluster.rs:276-286
+    is_edge = (bond_fetch(edge_t, b) == 1) & valid_op
+    skey, order, _ = sorted_legs(ops, model)
+    edge_s = torch.gather(is_edge.repeat(K, 1), 0, order)
+
+    valid_j = skey < SORT_BIG
+    svar = torch.where(valid_j, skey // M, -1)
+    seg_start = torch.ones_like(valid_j)
+    seg_start[1:] = svar[1:] != svar[:-1]
+    seg_end = torch.ones_like(valid_j)
+    seg_end[:-1] = svar[:-1] != svar[1:]
+    edge_i = (edge_s & valid_j).to(torch.int32)
+
+    # In the interleaved (in, out) break sequence the in element's id is
+    # c - edge - 1 and the out element's c - 1, with c the inclusive cumsum
+    # of (group head + edge op). The scan runs along the innermost axis of
+    # the transpose: PyTorch's CUDA scan along an outer axis of an int
+    # tensor took 2.6 ms at the 32x32 shape [13856, 256].
+    breaks = ((seg_start & valid_j).to(torch.int32) + edge_i).T.contiguous()
+    c = torch.cumsum(breaks, dim=1, dtype=torch.int32).T
+    seg_in_j = torch.where(valid_j, c - edge_i - 1, S - 1)
+    seg_out_j = torch.where(valid_j, c - 1, S - 1)
+    nseg = c[-1].clone()
+
+    # Back to flat leg space: sorted row j belongs at flat row order[j].
+    seg_in_k = torch.empty_like(seg_in_j).scatter_(0, order, seg_in_j).reshape(K, M, R)
+    seg_out_k = torch.empty_like(seg_out_j).scatter_(0, order, seg_out_j).reshape(K, M, R)
+    seg_in = torch.where(valid_op, seg_in_k[0], S - 1)
+    seg_out = torch.where(valid_op, seg_out_k[0], S - 1)
+
+    us, vs = [], []
+    for l in range(K - 1):
+        ok = (vars_kmr[l] >= 0) & (vars_kmr[l + 1] >= 0)
+        us.append(torch.where(ok, seg_in_k[l], S - 1))
+        vs.append(torch.where(ok, seg_in_k[l + 1], S - 1))
+
+    # Wrap edges and first-leg indices: each variable has one head and one
+    # tail row in sorted space; every other row lands in dump row N.
+    head = seg_start & valid_j
+    tail = seg_end & valid_j
+    row_h = torch.where(head, svar, N).long()
+    row_t = torch.where(tail, svar, N).long()
+
+    def place(rows, vals, fill):
+        out = torch.full((N + 1, R), fill, dtype=torch.int32, device=dev)
+        return out.scatter_(0, rows, vals)[:N]
+
+    uw = place(row_h, seg_in_j, S - 1)
+    vw = place(row_t, seg_out_j, S - 1)
+    head_f = place(row_h, order.to(torch.int32), KM)
+    return SegGraph(
+        seg_in=seg_in, seg_out=seg_out,
+        u=torch.cat(us + [uw]), v=torch.cat(vs + [vw]),
+        nseg=nseg, head_f=head_f, S=S,
+    )
+
+
+def hook_compress_labels(u: torch.Tensor, v: torch.Tensor, S: int) -> torch.Tensor:
+    """Connected components over the segment edge list ``(u, v) i32[E, R]``
+    by hook-and-compress: each round hooks ``min(P[u], P[v])`` onto the row
+    of the larger endpoint label (``P[max] <- min``), then pointer-jumps
+    ``P <- P[P]`` :data:`N_COMPRESS` times, until a round changes nothing.
+    Returns ``P i32[S, R]``: every segment of a component gets the
+    component's minimum id (``P[x] <= x`` and labels never leave the
+    component, so the minimum is its own root).
+
+    The fixpoint test reads one flag to the host per round."""
+    R = u.shape[1]
+    P0 = torch.arange(S, dtype=torch.int32, device=u.device)[:, None].repeat(1, R)
+
+    def hook(P, pu, pv):
+        Pn = P.scatter_reduce(0, torch.maximum(pu, pv).long(),
+                              torch.minimum(pu, pv), reduce="amin")
+        for _ in range(N_COMPRESS):
+            Pn = take0(Pn, Pn)
+        return Pn
+
+    # Round 1 from the identity: the endpoint labels are (u, v) themselves.
+    P = hook(P0, u, v)
+    changed = bool((P != P0).any())
+    while changed:
+        Pn = hook(P, take0(P, u), take0(P, v))
+        changed = bool((Pn != P).any())
+        P = Pn
+    return P
+
+
+def compact_dispatch(sg: SegGraph, consume: Callable,
+                     label_cap: int | None = None,
+                     edge_cap: int | None = None,
+                     overflow_noop=None):
+    """Run ``consume(W, seg_in, seg_out, SL)`` on a compacted label problem
+    of ``label_cap`` rows and ``edge_cap`` edges when every replica fits,
+    else at full size ``S`` (or return ``overflow_noop`` when given: the
+    sweep's cap-holding callers skip the cluster update instead).
+
+    Same defaults and branch rule as the JAX package's ``_compact_dispatch``:
+    the label-space size ``SL`` the branch picks is the shape of the cluster
+    uniforms, so it must agree. The ``fits`` test is a host read."""
+    u, v, S = sg.u, sg.v, sg.S
+    E = u.shape[0]
+    C = label_cap or max(256, 16 * (-(-(S // 2) // 16)))
+    CE = min(edge_cap or max(256, 16 * (-(-(2 * E // 3) // 16))), E)
+    if C + 64 >= S:
+        return consume(hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S)
+    cdump = C - 1
+    not_edge = u == S - 1
+    fits = bool((sg.nseg.max() <= cdump) & ((~not_edge).sum(0).max() <= CE))
+    if fits:
+        _, perm = torch.sort(not_edge.to(torch.int32), dim=0, stable=True)
+        uc = torch.gather(u, 0, perm[:CE]).clamp(max=cdump)
+        vc = torch.gather(v, 0, perm[:CE]).clamp(max=cdump)
+        return consume(hook_compress_labels(uc, vc, C),
+                       sg.seg_in.clamp(max=cdump), sg.seg_out.clamp(max=cdump), C)
+    if overflow_noop is not None:
+        return overflow_noop
+    return consume(hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S)
+
+
+def root_flip_prob(lab_in, lab_out, valid_op, w_cur, w_flip, SL: int,
+                   prob: float):
+    """Per-root flip probability ``min(prob * prod ratio, 1)`` and frozen
+    flag, ``f32/bool[SL, R]``, over the ops whose two sides share the root
+    (``cluster.rs:120-128``); an op whose flipped weight is 0 freezes its
+    cluster. The log-ratio sums are a scatter-add, whose order (and so the
+    last ulp) is not fixed on the GPU."""
+    R = lab_in.shape[1]
+    both_sides = valid_op & (lab_in == lab_out)
+    ratio = torch.where(both_sides, w_flip / w_cur.clamp(min=1e-30), 1.0)
+    frozen = both_sides & (w_flip <= 0.0)
+    logr = torch.where(both_sides, torch.log(ratio.clamp(min=1e-30)), 0.0)
+    lab = lab_in.long()
+    acc_logr = torch.zeros((SL, R), dtype=torch.float32,
+                           device=logr.device).scatter_add_(0, lab, logr)
+    acc_frozen = torch.zeros((SL, R), dtype=torch.int32,
+                             device=logr.device).scatter_add_(
+        0, lab, frozen.to(torch.int32)) > 0
+    return (prob * torch.exp(acc_logr)).clamp(max=1.0), acc_frozen
+
+
+def cluster_update_impl(ops: OpString, state: torch.Tensor,
+                        draw_uniform: Callable, model: BondModel,
+                        prob: float, label_cap: int | None,
+                        edge_cap: int | None, sg: SegGraph):
+    """Flip every cluster with probability ``prob`` times its weight ratio.
+
+    ``draw_uniform(shape)`` returns the per-root uniforms ``f32[SL, R]``
+    (the JAX package draws ``uniform(fold_in(key, 0), (SL, R))``). With
+    ``label_cap`` set, a cap overflow skips the update (all-False flips),
+    as in the JAX sweep path. Returns ``(ops, state)``."""
+    M, R = ops.bond.shape
+    K = ops.max_legs
+    KM = K * M
+    valid_op = ops.bond >= 0
+    b = ops.bond.clamp(min=0)
+    si = substate_index(ops.inputs)
+    so = substate_index(ops.outputs)
+    legmask = (1 << bond_fetch(model.arity(), b)) - 1
+    bl = b.long()
+    w_cur = model.full_w[bl, si.long(), so.long()]
+    w_flip = model.full_w[bl, (si ^ legmask).long(), (so ^ legmask).long()]
+
+    def flip_decisions(W, s_in, s_out, SL):
+        lab_in = take0(W, s_in.contiguous())  # [M, R] component root id
+        lab_out = take0(W, s_out.contiguous())
+        flip_prob, frozen = root_flip_prob(lab_in, lab_out, valid_op, w_cur,
+                                           w_flip, SL, prob)
+        flip_root = ((draw_uniform((SL, R)) < flip_prob) & ~frozen).to(torch.int32)
+        f_in = take0(flip_root, lab_in).bool() & valid_op
+        f_out = take0(flip_root, lab_out).bool() & valid_op
+        return f_in, f_out
+
+    noop = None
+    if label_cap is not None:
+        noop = (torch.zeros_like(valid_op), torch.zeros_like(valid_op))
+    flip_in, flip_out = compact_dispatch(
+        sg, flip_decisions, label_cap=label_cap, edge_cap=edge_cap,
+        overflow_noop=noop,
+    )
+
+    lv = op_vars(ops, model) >= 0  # [K, M, R]
+    new_inputs = ops.inputs ^ (flip_in[None] & lv)
+    new_outputs = ops.outputs ^ (flip_out[None] & lv)
+
+    # The p=0 state is the first op's input on each variable
+    # (cluster.rs:150-160); variables without ops keep their spin.
+    has_head = sg.head_f < KM
+    first_val = torch.gather(new_inputs.reshape(KM, R), 0,
+                             sg.head_f.clamp(max=KM - 1).long())  # [N, R]
+    new_state = torch.where(has_head.T, first_val.T, state)
+    return OpString(bond=ops.bond, inputs=new_inputs, outputs=new_outputs), new_state

@@ -1,0 +1,294 @@
+"""TFIM timestep and stepping API (port of ``isingmontecarlo_tpu/sse/ising.py``;
+reference ``QmcIsingGraph``, ``src/sse/qmc_ising.rs:28-46, 644-795``).
+
+``H = sum_ij J_ij s^z_i s^z_j + G sum_i s^x_i + h sum_i s^z_i``
+
+A timestep (``qmc_ising.rs:644-795``):
+
+1. Metropolis diagonal sweep;
+2. cluster update (weighted when ``h != 0``);
+3. resample spins that carry no op;
+4. grow the cutoff ``M = max(M, n + n/2)`` (on the host, between chunks).
+
+Randomness enters only through a :class:`Draws` object asked for each
+update's uniforms by shape, in the shapes the JAX package draws; the
+production one, :class:`GeneratorDraws`, draws from a ``torch.Generator`` on
+the model's device (Philox on CUDA).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Protocol, Sequence
+
+import torch
+
+from isingmontecarlo_tpu_torch.lattice import Edge, nvars_from_edges
+from isingmontecarlo_tpu_torch.sse import cluster as _cluster
+from isingmontecarlo_tpu_torch.sse import opstring as _ops
+from isingmontecarlo_tpu_torch.sse.diagonal import diagonal_update
+from isingmontecarlo_tpu_torch.sse.model import BondModel, tfim_model
+
+
+class SseState(NamedTuple):
+    """The simulation state: op string and p=0 spins ``bool[R, N]``."""
+
+    ops: _ops.OpString
+    state: torch.Tensor
+
+
+class Draws(Protocol):
+    """The random numbers of one timestep, asked for by shape."""
+
+    def diagonal(self, shape: tuple[int, int, int]) -> torch.Tensor:
+        """Uniforms ``f32[3, M, R]`` of the diagonal update."""
+
+    def cluster(self, shape: tuple[int, int]) -> torch.Tensor:
+        """Per-root uniforms ``f32[SL, R]`` of the cluster update."""
+
+    def free_spins(self, shape: tuple[int, int]) -> torch.Tensor:
+        """Fair coin flips ``bool[R, N]`` for spins that carry no op."""
+
+
+class GeneratorDraws:
+    """:class:`Draws` from a ``torch.Generator`` on one device."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def _uniform(self, shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator,
+                          device=self.generator.device, dtype=torch.float32)
+
+    def diagonal(self, shape):
+        return self._uniform(shape)
+
+    def cluster(self, shape):
+        return self._uniform(shape)
+
+    def free_spins(self, shape):
+        return self._uniform(shape) < 0.5
+
+
+def resample_free_spins(sse: SseState, fresh: torch.Tensor, model: BondModel,
+                        has_op: torch.Tensor | None = None) -> SseState:
+    """Spins with no ops take the coin flips ``fresh bool[R, N]``
+    (``qmc_ising.rs:780-784``). ``has_op bool[R, N]`` may be passed by a
+    caller that knows it; otherwise it is derived from the op string."""
+    if has_op is None:
+        R = sse.state.shape[0]
+        vars_ = _ops.op_vars(sse.ops, model).reshape(-1, R)
+        idx = torch.where(vars_ >= 0, vars_, model.nvars).long()
+        has_op = torch.zeros((model.nvars + 1, R), dtype=torch.bool,
+                             device=idx.device).scatter_(0, idx, True)[:-1].T
+    return sse._replace(state=torch.where(has_op, sse.state, fresh))
+
+
+def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
+          cluster_caps: tuple[int, int] | None = None,
+          do_cluster: bool = True) -> SseState:
+    """One timestep (``qmc_ising.rs:644-795`` minus cutoff growth).
+
+    ``do_cluster=False`` skips the cluster update and free-spin resample
+    (``multi_sweep``'s ``cluster_every`` thinning). ``cluster_caps`` are the
+    host-tracked ``(label_cap, edge_cap)`` of the cluster label problem;
+    without them the cluster update labels at full size, never skipped."""
+    ops, state = sse
+    M, R = ops.bond.shape
+    ops = diagonal_update(ops, state, beta, draws.diagonal((3, M, R)), model)
+    if not do_cluster:
+        return SseState(ops, state)
+    if cluster_caps is not None:
+        lc, ec = cluster_caps
+    else:
+        lc, ec = M + model.nvars + 1, None
+    # One segment graph serves the cluster update and the free-spin
+    # resample: a variable has ops iff its worldline has a head leg, and
+    # cluster flips never move ops.
+    sg = _cluster.segment_graph(ops, model)
+    has_op = (sg.head_f < ops.max_legs * M).T
+    ops, state = _cluster.cluster_update_impl(
+        ops, state, draws.cluster, model, 0.5, lc, ec, sg
+    )
+    return resample_free_spins(
+        SseState(ops, state), draws.free_spins((R, model.nvars)), model,
+        has_op=has_op,
+    )
+
+
+def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
+                next_draws: Callable[[], Draws],
+                cluster_caps: tuple[int, int] | None = None,
+                cluster_every: int = 1, collect_states: bool = False):
+    """``nsweeps`` timesteps; ``next_draws()`` gives each one's draws.
+
+    The cluster update runs on every ``cluster_every``-th timestep only
+    (``k = 1`` is the reference composition). Returns ``(sse, ns i32[T, R],
+    states bool[T, R, N] or None)``, ``ns`` the op count after each step."""
+    ns, states = [], []
+    for i in range(nsweeps):
+        sse = sweep(sse, beta, model, next_draws(), cluster_caps=cluster_caps,
+                    do_cluster=i % cluster_every == cluster_every - 1)
+        ns.append(_ops.op_count(sse.ops))
+        if collect_states:
+            states.append(sse.state)
+    return sse, torch.stack(ns), torch.stack(states) if collect_states else None
+
+
+def cap_counts(ops: _ops.OpString, model: BondModel):
+    """Per-batch maxima of (constant-op count, multi-leg-op count): the real
+    label and edge row counts of the cluster label problem, less N."""
+    b = ops.bond.clamp(min=0).long()
+    occ = ops.bond >= 0
+    n_const = (model.is_constant[b] & occ).sum(dim=0)
+    n_multi = (occ & (model.arity()[b] >= 2)).sum(dim=0)
+    return n_const.max(), n_multi.max()
+
+
+class QmcIsingGraph:
+    """Batched transverse-field Ising model QMC on one device: ``R``
+    independent replicas (``qmc_ising.rs:49-166``)."""
+
+    def __init__(
+        self,
+        edges: Sequence[tuple[Edge, float]],
+        transverse: float,
+        longitudinal: float = 0.0,
+        cutoff: int | None = None,
+        *,
+        replicas: int = 1,
+        seed: int = 0,
+        state=None,
+        device: torch.device | str,
+    ):
+        self.device = torch.device(device)
+        self.edges = list(edges)
+        self.transverse = float(transverse)
+        self.longitudinal = float(longitudinal)
+        self.nvars = nvars_from_edges(edges)
+        self.model = tfim_model(edges, transverse, longitudinal, device=self.device)
+        self.replicas = replicas
+        self.draws = GeneratorDraws(
+            torch.Generator(device=self.device).manual_seed(seed))
+        # Cold start: the cutoff has not tracked n + n/2 yet, so stepping
+        # begins with single timesteps (see timesteps_measure); the
+        # no-growth streak persists across calls.
+        self._growth_pending = True
+        self._growth_stable = 0
+        # Host-tracked caps of the cluster label problem (monotone,
+        # 16-quantized; see _maybe_grow). None until first measured.
+        self._cluster_caps: tuple[int, int] | None = None
+        self._cluster_every = 1
+        if state is None:
+            spins = self.draws.free_spins((replicas, self.nvars))
+        else:
+            spins = torch.as_tensor(state, dtype=torch.bool, device=self.device)
+            if spins.dim() == 1:
+                spins = spins[None].expand(replicas, self.nvars)
+            spins = spins.contiguous()
+        cutoff = max(cutoff or 0, self.nvars, 8)
+        self.sse = SseState(
+            ops=_ops.empty_opstring(cutoff, replicas, self.model.max_legs,
+                                    device=self.device),
+            state=spins,
+        )
+
+    def set_cluster_every(self, k: int) -> None:
+        """Run the cluster update and free-spin resample on every ``k``-th
+        timestep of a chunk (``k = 1``, the default, is the reference
+        composition)."""
+        if k < 1:
+            raise ValueError(f"cluster_every must be >= 1, got {k}")
+        self._cluster_every = int(k)
+
+    @property
+    def cutoff(self) -> int:
+        return self.sse.ops.cutoff
+
+    def get_n(self) -> torch.Tensor:
+        """Op count per replica ``i32[R]``."""
+        return _ops.op_count(self.sse.ops)
+
+    def get_energy_for_average_n(self, average_n, beta) -> torch.Tensor:
+        """``E = -<n>/beta + offset`` (``qmc_ising.rs:805-809``)."""
+        n = torch.as_tensor(average_n, device=self.device).to(torch.float32)
+        return -(n / beta) + self.model.offset
+
+    def verify(self) -> bool:
+        """Worldline integrity of every replica (``qmc_ising.rs:824-861``)."""
+        return bool(_ops.verify(self.sse.ops, self.sse.state, self.model).all())
+
+    def _maybe_grow(self) -> None:
+        """Cutoff growth ``M = max(M, n + n/2)`` (``qmc_ising.rs:786``),
+        quantized to multiples of 16, and a refresh of the cluster label
+        caps. Two host reads."""
+        n_max = int(_ops.op_count(self.sse.ops).max())
+        want = n_max + n_max // 2
+        if want > self.cutoff:
+            new_m = ((want + 15) // 16) * 16
+            self.sse = self.sse._replace(ops=_ops.grow(self.sse.ops, new_m))
+        nc, nm = (int(x) for x in torch.stack(cap_counts(self.sse.ops, self.model)).tolist())
+        N = self.nvars
+        want_l = max(256, 16 * ((int((nc + N + 2) * 1.3) + 15) // 16))
+        want_e = max(256, 16 * ((int((nm + N + 2) * 1.3) + 15) // 16))
+        cur = self._cluster_caps or (0, 0)
+        if want_l > cur[0] or want_e > cur[1]:
+            self._cluster_caps = (max(want_l, cur[0]), max(want_e, cur[1]))
+
+    def timestep(self, beta: float) -> torch.Tensor:
+        """One timestep; returns the state (``qmc_ising.rs:644-795``)."""
+        self.sse = sweep(self.sse, beta, self.model, self.draws,
+                         cluster_caps=self._cluster_caps)
+        self._maybe_grow()
+        return self.sse.state
+
+    def timesteps(self, t: int, beta: float, chunk: int = 16) -> torch.Tensor:
+        """``t`` timesteps; returns the average energy per replica ``f32[R]``
+        (``qmc_stepper.rs:17-20``)."""
+        _, energy = self.timesteps_measure(t, beta, None, lambda acc, s: acc,
+                                           chunk=chunk)
+        return energy
+
+    def timesteps_measure(
+        self,
+        timesteps: int,
+        beta: float,
+        init_acc: Any,
+        state_fold: Callable[[Any, torch.Tensor], Any],
+        sampling_freq: int | None = None,
+        chunk: int = 16,
+    ):
+        """Fold ``state_fold(acc, state)`` over the states of every
+        ``sampling_freq``-th step and average their op counts
+        (``qmc_stepper.rs:133-162``). Returns ``(acc, energy f32[R])``."""
+        freq = sampling_freq or 1
+        acc = init_acc
+        total_n = torch.zeros((self.replicas,), dtype=torch.float64, device=self.device)
+        steps_measured = 0
+        done = 0
+        stable = 2 if not self._growth_pending else self._growth_stable
+        while done < timesteps:
+            # Growth phase: from a cold cutoff, single timesteps (the
+            # reference grows after every step) until two in a row stop
+            # growing, then chunks, checked between chunks.
+            todo = 1 if stable < 2 else min(chunk, timesteps - done)
+            collect = any((done + i + 1) % freq == 0 for i in range(todo))
+            self.sse, ns, states = multi_sweep(
+                self.sse, beta, self.model, todo, lambda: self.draws,
+                cluster_caps=self._cluster_caps,
+                cluster_every=self._cluster_every if todo > 1 else 1,
+                collect_states=collect,
+            )
+            for i in range(todo):
+                if (done + i + 1) % freq == 0:
+                    if states is not None:
+                        acc = state_fold(acc, states[i])
+                    total_n += ns[i]
+                    steps_measured += 1
+            done += todo
+            before = self.cutoff
+            self._maybe_grow()
+            stable = 0 if self.cutoff != before else stable + 1
+        self._growth_stable = stable
+        self._growth_pending = stable < 2
+        average_n = total_n / max(steps_measured, 1)
+        return acc, self.get_energy_for_average_n(average_n, beta)

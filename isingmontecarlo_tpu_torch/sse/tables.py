@@ -1,0 +1,23 @@
+"""Per-bond table lookups on ``[E, R]`` index grids.
+
+The JAX package routes these through a digit-plane gather kernel and
+compare-select chains, because per-lane gathers scalarise on a TPU. On a GPU
+a gather from a small table shared by all replicas is plain indexing, which
+reads the original entries and so is bit-exact with every TPU form.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def bond_fetch(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``tab[idx]`` as int32 for a per-bond table ``tab[NB]`` and an index
+    grid ``idx i32[E, R]`` with values in ``[0, NB)``."""
+    return tab.to(torch.int32)[idx.long()]
+
+
+def bond_fetch_multi(tabs, idx: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Several per-bond tables fetched at the same index grid."""
+    i = idx.long()
+    return tuple(t.to(torch.int32)[i] for t in tabs)
