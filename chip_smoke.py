@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SSE timestep on one CUDA GPU and check it.
+"""Drive the PyTorch port's SSE timestep and classical engine on one CUDA
+GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -8,16 +9,24 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
 1. Host facts: the card's name and power limit (nvidia-smi), CUDA, nvcc.
 2. Build the kernels from ``isingmontecarlo_tpu_torch/csrc``.
 3. Each kernel against its plain PyTorch version on the card, at a small
-   ragged shape and at the shapes of the 32x32 benchmark slice: equal
-   (``torch.equal``), with both times at the latter.
+   ragged shape and at the shapes of its main path (K2-K4: the 32x32 SSE
+   slice; K1: the 256^2 lattice at R=64, 100 sweeps): equal
+   (``torch.equal``), with both times at the latter, and each kernel's
+   bound (bytes or operations at the card's published peaks).
 4. Physics: ``QmcIsingGraph`` on an 8-site TFIM chain against exact
    diagonalization, and ``verify()``.
-5. The main path: ``QmcIsingGraph`` on the 32x32 benchmark lattice at R=256,
-   grown to steady state, then 16-step chunks; every kernel must have been
+5. The SSE main path: ``QmcIsingGraph`` on the 32x32 benchmark lattice at
+   R=256, grown to steady state, then 16-step chunks; K2, K3 and K4 must
+   have been launched by this run.
+6. The classical main path: ``LatticeIsing(256, j=-1, replicas=64)``
+   against Onsager's energy and Yang's magnetization, its marginal
+   spin-flip attempts/s, then the README's ``GraphState`` quickstart on the
+   same lattice and worms on a small frustrated lattice; K1 must have been
    launched by this run.
 
-Then one JSON line of per-kernel results, and last a JSON line with the
-device. The script needs no network and imports nothing of JAX.
+Then one JSON line of per-kernel results, a line with the card's name and
+power limit, and last a JSON line with the device. The script needs no
+network and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,8 +39,9 @@ import time
 import numpy as np
 import torch
 
-from isingmontecarlo_tpu_torch import lattice, ops
+from isingmontecarlo_tpu_torch import GraphState, LatticeIsing, lattice, ops
 from isingmontecarlo_tpu_torch.analysis import effective_sample_size
+from isingmontecarlo_tpu_torch.classical import metropolis, worm
 from isingmontecarlo_tpu_torch.ops import _build
 from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, multi_sweep
 
@@ -39,8 +49,23 @@ from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, multi_sweep
 # label tables of C ~ 8000 rows gathered at E ~ 7000 indices.
 K, M, R, N = 2, 7000, 256, 1024
 C_TAKE, E_TAKE = 8000, 7000
+# K1's main path: the 256^2 lattice, 64 replicas, J=-1, beta=0.4, calls of
+# 100 sweeps (the JAX package's classical benchmark, bench.py:141-197).
+L_CB, R_CB, SWEEPS_CB, BETA_CB = 256, 64, 100, 0.4
+
+# Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
+# float32 rate outside the tensor cores, used for K1's 32-bit integer work.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# K1's operations per attempt: a quarter of a Philox4x32-10 call (10 rounds
+# of 2 mul-hi, 2 mul-lo and 4 XORs, 9 key bumps of 2 adds: 98) plus the
+# neighbour sum (3 adds), table index, shift, int-to-float, multiply,
+# compare and XOR (6).
+K1_OPS_PER_ATTEMPT = 98 / 4 + 9
 
 KERNEL_INFO = {
+    "checkerboard_multi_sweep": ("isingmontecarlo_tpu_torch/csrc/checkerboard.cu",
+                                 "isingmontecarlo_tpu/ops/checkerboard.py:117"),
     "parity_bits": ("isingmontecarlo_tpu_torch/csrc/parity_bits.cu",
                     "isingmontecarlo_tpu/ops/parity_kernel.py:95"),
     "carry_decisions": ("isingmontecarlo_tpu_torch/csrc/carry_metropolis.cu",
@@ -113,9 +138,63 @@ def kernel_inputs(rng, dev, K, M, R, N, C, E) -> dict:
     }
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, operations: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over HBM
+    bandwidth and the operations over the peak rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = operations / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_checkerboard(dev) -> dict:
+    """Phase 3 for K1: kernel equals plain at a ragged shape (L=6, R=3,
+    5 sweeps, h != 0) and at the main-path shape, where both are timed."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [
+        (torch.rand((3, 6, 6), generator=gen, device=dev) < 0.5, 5, 0.7, -1.0, 0.3),
+        (torch.rand((R_CB, L_CB, L_CB), generator=gen, device=dev) < 0.5,
+         SWEEPS_CB, BETA_CB, -1.0, 0.0),
+    ]
+    for spins, nsweeps, beta, j, h in cases:
+        got = ops.checkerboard_multi_sweep(spins, 12345, beta, j, h, nsweeps)
+        want = ops.checkerboard_multi_sweep_plain(spins, 12345, beta, j, h, nsweeps)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"checkerboard_multi_sweep differs from its plain "
+                                 f"version at {tuple(spins.shape)}, {nsweeps} sweeps")
+        if torch.equal(got, spins):
+            raise AssertionError("checkerboard_multi_sweep changed no spin")
+    err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    ms = cuda_ms(lambda: ops.checkerboard_multi_sweep(spins, 1, beta, j, h, nsweeps), 10)
+    plain_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_plain(spins, 1, beta, j, h,
+                                                                  nsweeps), 1)
+    attempts = spins.numel() * nsweeps
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound(2 * nbytes(spins), attempts * K1_OPS_PER_ATTEMPT), "library_ms": None}
+    print(f"checkerboard_multi_sweep: equal to plain (max_abs_err {err}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}); {attempts / (ms * 1e-3):.4e} attempts/s in the kernel; "
+          f"spins {tuple(spins.shape)}, {nsweeps} sweeps", flush=True)
+    other = {}
+    for r, l in ((256, L_CB), (R_CB, 128)):
+        sp = torch.rand((r, l, l), generator=gen, device=dev) < 0.5
+        t = cuda_ms(lambda: ops.checkerboard_multi_sweep(sp, 1, BETA_CB, -1.0, 0.0,
+                                                         SWEEPS_CB), 5)
+        other[f"R={r} L={l}"] = {"ms": t, "attempts_per_s": sp.numel() * SWEEPS_CB / (t * 1e-3)}
+    print("checkerboard_multi_sweep at other shapes, 100 sweeps: " + json.dumps(other),
+          flush=True)
+    return res
+
+
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel equals its plain version on the card, at a
     small ragged shape and at the main-path shape, where both are timed."""
+    results = {"checkerboard_multi_sweep": check_checkerboard(dev)}
     rng = np.random.default_rng(0)
     wrappers = {
         "parity_bits": (ops.parity_bits, ops.parity_bits_plain, 20, 3),
@@ -124,7 +203,6 @@ def check_kernels(dev) -> dict:
     }
     ragged = kernel_inputs(rng, dev, K, 37, 5, 9, 7, 5)
     full = kernel_inputs(rng, dev, K, M, R, N, C_TAKE, E_TAKE)
-    results = {}
     for name, (kernel, plain, reps, plain_reps) in wrappers.items():
         for args in (ragged[name], full[name]):
             got = kernel(*args)
@@ -140,10 +218,23 @@ def check_kernels(dev) -> dict:
                   for g, w in zip(got, want))
         ms = cuda_ms(lambda: kernel(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), plain_reps)
+        library_ms = None
+        if name == "take0":
+            # torch.gather on the same table with the index widened beforehand.
+            idx64 = args[1].long()
+            library_ms = cuda_ms(lambda: torch.gather(args[0], 0, idx64), reps)
+        # Each input read once and each output written once; K2 and K4 do
+        # a few integer operations per byte, K3 one short serial chain per
+        # slot, so bytes set the bound (K3's chain is a latency limit that
+        # this bound does not see).
+        res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               **bound(nbytes(*args, *got)), "library_ms": library_ms}
         shapes = [tuple(a.shape) for a in args]
         print(f"{name}: equal to plain (max_abs_err {err}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms; input shapes {shapes}", flush=True)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+              f"plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}), library {library_ms}; input shapes {shapes}",
+              flush=True)
+        results[name] = res
     return results
 
 
@@ -204,6 +295,123 @@ def run_slice(dev) -> dict:
     return out
 
 
+def onsager_energy(beta: float) -> float:
+    """Energy per site of the infinite square-lattice ferromagnet (|J| = 1)."""
+    from scipy.special import ellipk
+
+    k = 2.0 * np.sinh(2 * beta) / np.cosh(2 * beta) ** 2
+    t = np.tanh(2 * beta)
+    return float(-(1 / t) * (1 + 2 / np.pi * (2 * t * t - 1) * ellipk(k * k)))
+
+
+def yang_magnetization(beta: float) -> float:
+    return float((1 - np.sinh(2 * beta) ** -4) ** 0.125)
+
+
+def lattice_observables(g: LatticeIsing, beta: float, equil: int, samples: int,
+                        every: int) -> tuple:
+    """Per-replica means of E/site and |M|/site over ``samples`` snapshots
+    ``every`` sweeps apart, after ``equil`` sweeps."""
+    g.run_sweeps(equil, beta)
+    es, ms = [], []
+    for _ in range(samples):
+        g.run_sweeps(every, beta)
+        es.append(g.get_energy())
+        ms.append(g.get_magnetization().abs())
+    n = g.L * g.L
+    return (torch.stack(es).mean(0).cpu().numpy() / n,
+            torch.stack(ms).mean(0).cpu().numpy() / n)
+
+
+def run_classical(dev) -> dict:
+    """Phase 6: the classical main path at full width, through K1."""
+    out = {}
+    t0 = time.perf_counter()
+    for beta, state in ((0.3, None), (0.6, np.ones((L_CB, L_CB), bool))):
+        g = LatticeIsing(L_CB, j=-1.0, replicas=R_CB, seed=3, state=state, device=dev)
+        e, m = lattice_observables(g, beta, 300, 20, 10)
+        exact = onsager_energy(beta)
+        se = e.std(ddof=1) / np.sqrt(len(e))
+        print(f"{L_CB}^2, R={R_CB}, beta={beta}, {'random' if state is None else 'ordered'} "
+              f"start: E/site {e.mean():.6f} +- {se:.6f} (Onsager {exact:.6f}, "
+              f"{abs(e.mean() - exact) / se:.2f} SE), |M|/site {m.mean():.6f}", flush=True)
+        if not (np.all(np.isfinite(e)) and abs(e.mean() - exact) < min(5 * se, 2e-3)):
+            raise AssertionError(f"E/site at beta={beta} is off Onsager's value")
+        if beta > 0.5:
+            yang = yang_magnetization(beta)
+            print(f"  Yang |M|/site {yang:.6f}, difference {m.mean() - yang:.6f}", flush=True)
+            if abs(m.mean() - yang) >= 5e-3:
+                raise AssertionError("|M|/site at beta=0.6 is off Yang's value")
+        out[f"energy_per_site_beta_{beta}"] = float(e.mean())
+    print(f"Onsager and Yang checks in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Marginal rate, as bench.py:141-197: time calls of n and 5n sweeps
+    # (each ending in a synchronize) and divide the extra attempts by the
+    # extra time, which removes the per-call constant.
+    g = LatticeIsing(L_CB, j=-1.0, replicas=R_CB, seed=4, device=dev)
+
+    def timed(n: int) -> float:
+        g.run_sweeps(n, BETA_CB)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t1 = time.perf_counter()
+            g.run_sweeps(n, BETA_CB)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t1)
+        return best
+
+    t_small, t_big = timed(SWEEPS_CB), timed(5 * SWEEPS_CB)
+    attempts = R_CB * L_CB * L_CB * 4 * SWEEPS_CB
+    out["attempts_per_s"] = attempts / (t_big - t_small)
+    out["seconds_100_sweeps"], out["seconds_500_sweeps"] = t_small, t_big
+    print(f"{L_CB}^2, R={R_CB}, J=-1, beta={BETA_CB}: "
+          f"{out['attempts_per_s']:.4e} spin-flip attempts/s (marginal; "
+          f"{t_small:.4f} s for {SWEEPS_CB} sweeps, {t_big:.4f} s for {5 * SWEEPS_CB})",
+          flush=True)
+
+    # The README quickstart on the same lattice: the general graph engine.
+    t0 = time.perf_counter()
+    n = L_CB * L_CB
+    g = GraphState.new(lattice.square(L_CB, L_CB, j=-1.0), [0.0] * n, replicas=R_CB,
+                       device=dev)
+    print(f"GraphState on {L_CB}^2: tables built in {time.perf_counter() - t0:.1f} s, "
+          f"{g.tables.n_site_colors} site and {g.tables.n_edge_colors} edge colours",
+          flush=True)
+    moves = [("do_spin_flip", g.do_spin_flip)] * 3 + [
+        ("do_time_step(only_basic_moves=True)",
+         lambda b: g.do_time_step(b, only_basic_moves=True))] * 4 + [
+        ("swendsen_wang_step", g.swendsen_wang_step)] * 2
+    for name, move in moves:
+        t1 = time.perf_counter()
+        move(0.44)
+        e = g.get_energy()
+        want = metropolis.lattice_energy(g.spins.reshape(R_CB, L_CB, L_CB), -1.0, 0.0)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(e).all() and torch.equal(e, want)):
+            raise AssertionError(f"GraphState energy after {name} disagrees with the "
+                                 f"lattice formula")
+        print(f"  {name}: {time.perf_counter() - t1:.3f} s, E/site "
+              f"{float(e.mean()) / n:.5f}", flush=True)
+
+    # Worms on a small frustrated lattice, where they close quickly: the
+    # coupling energy must be unchanged exactly at h = 0.
+    g = GraphState.new(lattice.frustrated_square(8, 8), [0.0] * 64, replicas=R_CB,
+                       seed=5, device=dev)
+    moved = 0
+    for _ in range(5):
+        before, e0 = g.spins, g.get_energy()
+        g.spins = worm.worm_sweep(g.spins, g.draws, 1.0, g.tables)
+        if not torch.equal(g.get_energy(), e0):
+            raise AssertionError("a worm changed the coupling energy")
+        moved += int((g.spins != before).any(dim=1).sum())
+    print(f"worms on the 8x8 frustrated lattice: energy kept, {moved} replica-moves "
+          f"changed spins", flush=True)
+    if moved == 0:
+        raise AssertionError("no worm moved")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -211,7 +419,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     phase("1. host")
-    print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
+    card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     print(run([_build.nvcc_path(), "--version"]).splitlines()[-1], flush=True)
 
@@ -230,20 +439,33 @@ def main() -> None:
     phase("4. physics: 8-site chain against ED")
     check_physics(dev)
 
-    phase("5. main path: 32x32 benchmark lattice")
+    phase("5. SSE main path: 32x32 benchmark lattice")
     ops.reset_launch_counts()
     run_slice(dev)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    print(f"kernel launches in the main path: {counts}", flush=True)
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was not launched: {counts}")
+    print(f"kernel launches in the SSE main path: {counts}", flush=True)
+    sse_kernels = ("parity_bits", "carry_decisions", "take0")
+    if min(counts[k] for k in sse_kernels) <= 0:
+        raise AssertionError(f"a kernel of the SSE path was not launched: {counts}")
+    launches = {k: counts[k] for k in sse_kernels}
+
+    phase("6. classical main path: 256^2 lattice")
+    ops.reset_launch_counts()
+    run_classical(dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"kernel launches in the classical main path: {counts}", flush=True)
+    if counts["checkerboard_multi_sweep"] <= 0:
+        raise AssertionError(f"K1 was not launched by the classical path: {counts}")
+    launches["checkerboard_multi_sweep"] = counts["checkerboard_multi_sweep"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **kernel_results[name]}
+         "launches": launches[name], **kernel_results[name]}
         for name, (src, rep) in KERNEL_INFO.items()
     ]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

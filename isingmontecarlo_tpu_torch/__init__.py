@@ -1,13 +1,16 @@
-"""isingmontecarlo_tpu_torch — the SSE transverse-field Ising engine of
-``isingmontecarlo_tpu`` on PyTorch, with hand-written CUDA kernels for an
-NVIDIA Hopper GPU.
+"""isingmontecarlo_tpu_torch — the classical engine and the SSE
+transverse-field Ising engine of ``isingmontecarlo_tpu`` on PyTorch, with
+hand-written CUDA kernels for an NVIDIA Hopper GPU.
 
-The package imports ``torch`` and numpy only. Every constructor takes an
-explicit ``device``; a CPU tensor runs each kernel's plain PyTorch version
-and a CUDA tensor the kernel (built from ``csrc/`` at first use).
+The package imports ``torch`` and numpy only. Constructors and entry points
+run on ``device="cuda"`` unless the caller passes another device; a CPU
+tensor runs each kernel's plain PyTorch version and a CUDA tensor the kernel
+(built from ``csrc/`` at first use).
 """
 
-from isingmontecarlo_tpu_torch import analysis, lattice, ops, sse
+from isingmontecarlo_tpu_torch import analysis, classical, lattice, ops, sse
+from isingmontecarlo_tpu_torch.classical import GraphState, LatticeIsing
 from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, tfim_model
 
-__all__ = ["QmcIsingGraph", "analysis", "lattice", "ops", "sse", "tfim_model"]
+__all__ = ["GraphState", "LatticeIsing", "QmcIsingGraph", "analysis", "classical",
+           "lattice", "ops", "sse", "tfim_model"]

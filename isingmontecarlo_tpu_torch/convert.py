@@ -1,11 +1,13 @@
-"""Carry the JAX package's model and state across as numpy arrays, so both
-packages compute from the same inputs. The JAX PRNG key is not carried."""
+"""Carry the JAX package's models, tables and states across as numpy arrays,
+so both packages compute from the same inputs. The JAX PRNG key is not
+carried."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from isingmontecarlo_tpu_torch.classical.metropolis import tables_from_numpy
 from isingmontecarlo_tpu_torch.sse.ising import SseState
 from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import OpString
@@ -42,3 +44,9 @@ def sse_state_from_numpy(*, bond, inputs, outputs, state,
         ),
         state=_t(state, torch.bool, device),
     )
+
+
+# The port's GraphTables from the JAX GraphTables' fields (numpy arrays and
+# the two colour counts), colourings included, so both packages sweep the
+# same colour classes.
+graph_tables_from_numpy = tables_from_numpy

@@ -1,7 +1,12 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
-the SSE timestep, each beside its plain PyTorch version. The library builds
-from ``csrc/`` at first use (see :mod:`._build`)."""
+the classical checkerboard path and the SSE timestep, each beside its plain
+PyTorch version. The library builds from ``csrc/`` at first use (see
+:mod:`._build`)."""
 
+from isingmontecarlo_tpu_torch.ops.checkerboard import (
+    checkerboard_multi_sweep,
+    checkerboard_multi_sweep_plain,
+)
 from isingmontecarlo_tpu_torch.ops.diag_carry import (
     carry_decisions,
     carry_decisions_plain,
@@ -13,7 +18,7 @@ from isingmontecarlo_tpu_torch.ops.parity_kernel import (
 from isingmontecarlo_tpu_torch.ops.take_kernel import take0, take0_plain
 
 # The wrappers whose ``launches`` count the kernel launches of a run.
-KERNELS = (parity_bits, carry_decisions, take0)
+KERNELS = (checkerboard_multi_sweep, parity_bits, carry_decisions, take0)
 
 
 def reset_launch_counts() -> None:
@@ -29,6 +34,8 @@ __all__ = [
     "KERNELS",
     "carry_decisions",
     "carry_decisions_plain",
+    "checkerboard_multi_sweep",
+    "checkerboard_multi_sweep_plain",
     "launch_counts",
     "parity_bits",
     "parity_bits_plain",

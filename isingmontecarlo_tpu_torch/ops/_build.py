@@ -1,8 +1,9 @@
 """Build, load and call the CUDA kernels under ``csrc/``.
 
-Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use, into ``_build/`` beside the sources, and the library's file name
+Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` (one compiler
+process per source, all started together) and links into one shared library
+with a plain C interface, loaded with ``ctypes``. The build runs at first
+use, into ``_build/`` beside the sources, and the library's file name
 carries a hash of the sources and flags, so a changed source is rebuilt. A
 missing ``nvcc`` or a failed build raises with the compiler's output.
 
@@ -30,11 +31,13 @@ BUILD_DIR = PKG_DIR / "_build"
 # as it does in the plain PyTorch versions and in XLA.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
+    # in, out, table, seed word 0, seed word 1, R, L, nsweeps, stream
+    "ising_checkerboard": (_P, _P, _P, _U, _U, _I, _I, _I, _P),
     # table, idx, out, C, E, R, stream
     "ising_take0": (_P, _P, _P, _I, _I, _I, _P),
     # state, v_idx, tog, vq, seg (scratch), pb, sb, K, M, R, N, seg_len, stream
@@ -68,21 +71,38 @@ def nvcc_path() -> str:
     return path
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; return their joined output, or raise
+    with the output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {p.returncode}:\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(path: Path) -> None:
-    """Compile every source into ``path``; the compiler's output (with
+    """Compile every source into ``path``; the compilers' output (with
     ``-Xptxas -v``'s register and shared-memory report) goes beside it as
     ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    objs, compiles = [], []
+    for src in _sources():
+        if src.suffix == ".cu":
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            objs.append(obj)
+            compiles.append([nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    log = _run_all(compiles)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    log += _run_all([[nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
+    path.with_suffix(".log").write_text(log)
     os.replace(tmp, path)  # atomic: concurrent builders never load a partial file
 
 

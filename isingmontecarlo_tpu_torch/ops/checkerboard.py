@@ -1,0 +1,200 @@
+"""K1: ``nsweeps`` checkerboard Metropolis sweeps of a periodic L x L field.
+
+Replaces ``isingmontecarlo_tpu/ops/checkerboard.py::checkerboard_multi_sweep``
+(a Pallas kernel that holds one replica's field in VMEM for all sweeps).
+The CUDA kernel is ``csrc/checkerboard.cu``: one block per replica with both
+colour planes in shared memory; see that file for what bounds it on the card.
+
+Semantics (``src/classical/graph.rs:339-347, 430-447``): energy
+``E = J sum_<ij> s_i s_j - h sum_i s_i``; each sweep updates the even plane
+(``(x + y) % 2 == 0``) and then the odd one, flipping a site when
+``u < exp(-beta * max(dE, 0))`` with ``dE = s * (2h - 2J * nsum)``.
+
+Layout: the two colours are held as compact ``(L, L/2)`` planes (plane E
+holds ``s[y, 2k + (y & 1)]``, plane O the rest), so every lane is a real
+attempt; neighbour sums are the other plane at rows ``y +- 1`` and at
+columns ``k`` and ``k -+ 1`` chosen by row parity. L must be even.
+
+Randomness: Philox4x32-10 (Salmon et al., SC'11; Random123's constants),
+keyed by the 64-bit ``seed`` and counted by ``(group, sweep, colour,
+replica)``, where ``group = site // 4`` over the plane's row-major sites and
+word ``site % 4`` of the group's output is the site's draw. So the numbers
+do not depend on launch geometry, and the kernel and :func:`checkerboard_
+multi_sweep_plain` give the same spins bit for bit. ``u = (bits >> 8) *
+2^-24``. ``dE`` takes 10 values (``s = +-1``, ``nsum`` in ``{-4..4}`` step
+2), so the acceptance probabilities are one ``f32[2, 5]`` table computed once
+with ``torch.exp`` (:func:`accept_table`), which both versions index.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from isingmontecarlo_tpu_torch.ops import _build
+
+# Random123's Philox4x32 multipliers and Weyl key increments.
+PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+# Both int8 planes of a replica sit in one block's shared memory: L * L bytes
+# of the 232,448 an H100 block can have, so L <= 482.
+MAX_SHARED_BYTES = 232_448
+
+
+def split_planes(x: torch.Tensor) -> torch.Tensor:
+    """``[..., L, L]`` -> ``[..., 2, L, L/2]`` compact colour planes, any
+    dtype: plane 0 holds the sites with ``(x + y) % 2 == 0``."""
+    *lead, L, _ = x.shape
+    pairs = x.reshape(*lead, L, L // 2, 2)
+    ye = (torch.arange(L, device=x.device) % 2 == 0)[:, None]
+    e = torch.where(ye, pairs[..., 0], pairs[..., 1])
+    o = torch.where(ye, pairs[..., 1], pairs[..., 0])
+    return torch.stack([e, o], dim=-3)
+
+
+def split_colors(spins: torch.Tensor) -> torch.Tensor:
+    """``bool/int8 [R, L, L]`` -> ``int8 [R, 2, L, L/2]`` compact planes."""
+    return split_planes(spins.to(torch.int8))
+
+
+def merge_colors(eo: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`split_colors`: ``[R, 2, L, L/2]`` -> ``[R, L, L]``."""
+    R, _, L, H = eo.shape
+    e, o = eo[:, 0], eo[:, 1]
+    ye = (torch.arange(L, device=eo.device) % 2 == 0)[:, None]
+    p0 = torch.where(ye, e, o)
+    p1 = torch.where(ye, o, e)
+    return torch.stack([p0, p1], dim=-1).reshape(R, L, 2 * H)
+
+
+def plane_neighbour_sums(other: torch.Tensor, color: int) -> torch.Tensor:
+    """Sum of the four neighbours of every site of plane ``color``, read
+    from the other plane ``other [..., L, H]`` (any numeric dtype)."""
+    L = other.shape[-2]
+    row_even = (torch.arange(L, device=other.device) % 2 == 0)[:, None]
+    # Left/right pair: column k and k - 1 (E plane, even rows; O plane, odd
+    # rows) or k and k + 1 (the other two cases).
+    back = row_even if color == 0 else ~row_even
+    side = torch.where(back, torch.roll(other, 1, dims=-1),
+                       torch.roll(other, -1, dims=-1))
+    return (torch.roll(other, 1, dims=-2) + torch.roll(other, -1, dims=-2)
+            + other + side)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """``(hi, lo)`` 32-bit words of ``m * x`` for ``x`` int64 holding uint32.
+    The product can reach 2^64 and overflow int64, so it is formed from the
+    16-bit halves of ``x``."""
+    a = m * (x & 0xFFFF)  # < 2^48
+    b = m * (x >> 16)  # < 2^48
+    low = a + ((b & 0xFFFF) << 16)  # < 2^49
+    return (b >> 16) + (low >> 32), low & _MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 of counter ``(c0, c1, c2, c3)`` (int64 tensors or ints
+    holding uint32, broadcast together) under key ``(k0, k1)``; returns the
+    four output words as int64 tensors."""
+    c = [torch.as_tensor(x, dtype=torch.int64) for x in (c0, c1, c2, c3)]
+    k0, k1 = k0 & _MASK32, k1 & _MASK32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + PHILOX_W0) & _MASK32, (k1 + PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c[0])
+        hi1, lo1 = _mulhilo(PHILOX_M1, c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return c
+
+
+def seed_words(seed: int) -> tuple[int, int]:
+    """The two Philox key words of a 64-bit seed (taken mod 2^64)."""
+    s = int(seed) & ((1 << 64) - 1)
+    return s & _MASK32, s >> 32
+
+
+def plane_uniforms(seed: int, R: int, L: int, sweep: int, color: int,
+                   device) -> torch.Tensor:
+    """``f32[R, L, L/2]``: the draws of plane ``color`` in sweep ``sweep``."""
+    H = L // 2
+    k0, k1 = seed_words(seed)
+    n_groups = (L * H + 3) // 4
+    g = torch.arange(n_groups, dtype=torch.int64, device=device)[None]
+    r = torch.arange(R, dtype=torch.int64, device=device)[:, None]
+    words = torch.stack(philox4x32(g, sweep, color, r, k0, k1), dim=-1)
+    bits = words.reshape(R, 4 * n_groups)[:, : L * H]
+    return ((bits >> 8).to(torch.float32) * 2.0 ** -24).reshape(R, L, H)
+
+
+def accept_table(beta, j, h, device) -> torch.Tensor:
+    """``f32[2, 5]``: ``p[s, c] = exp(-beta * max(dE, 0))`` for spin index
+    ``s`` (0 down, 1 up) and ``c`` up neighbours, with the Pallas kernel's
+    ``dE = s * (2h - 2J * nsum)``, ``nsum = 2c - 4``, all in float32."""
+    f32 = torch.float32
+    beta, j, h = (torch.tensor(float(x), dtype=f32, device=device) for x in (beta, j, h))
+    sig = torch.tensor([-1.0, 1.0], dtype=f32, device=device)[:, None]
+    nsum = torch.arange(-4.0, 5.0, 2.0, dtype=f32, device=device)[None]
+    de = sig * (2.0 * h - 2.0 * j * nsum)
+    return torch.exp(-beta * torch.clamp(de, min=0.0))
+
+
+def half_sweep(eo: torch.Tensor, color: int, u: torch.Tensor,
+               table: torch.Tensor) -> torch.Tensor:
+    """Update plane ``color`` of ``eo int8[R, 2, L, H]`` (0/1 spins) with the
+    draws ``u f32[R, L, H]`` and the table of :func:`accept_table`; returns
+    the new ``eo``."""
+    own = eo[:, color]
+    ups = plane_neighbour_sums(eo[:, 1 - color].to(torch.int64), color)
+    p = table[own.to(torch.int64), ups]
+    new = own ^ (u < p).to(torch.int8)
+    return torch.stack([new, eo[:, 1]] if color == 0 else [eo[:, 0], new], dim=1)
+
+
+def _check_lattice(spins: torch.Tensor) -> tuple[int, int]:
+    if spins.dim() != 3 or spins.shape[1] != spins.shape[2]:
+        raise ValueError(f"spins: expected [R, L, L], got {tuple(spins.shape)}")
+    R, L, _ = spins.shape
+    if L % 2:
+        # With odd L the periodic wrap makes same-coloured sites neighbours,
+        # and a parallel colour update is no longer a Metropolis sweep.
+        raise ValueError(f"checkerboard sweeps need an even L, got L={L}")
+    return R, L
+
+
+def checkerboard_multi_sweep_plain(spins, seed: int, beta, j, h,
+                                   nsweeps: int) -> torch.Tensor:
+    """The plain PyTorch version: the same Philox draws and table, one colour
+    plane at a time."""
+    R, L = _check_lattice(spins)
+    eo = split_colors(spins)
+    table = accept_table(beta, j, h, spins.device)
+    for t in range(nsweeps):
+        for c in (0, 1):
+            eo = half_sweep(eo, c, plane_uniforms(seed, R, L, t, c, spins.device), table)
+    return merge_colors(eo).to(torch.bool)
+
+
+def checkerboard_multi_sweep(spins: torch.Tensor, seed: int, beta, j, h,
+                             nsweeps: int) -> torch.Tensor:
+    """``nsweeps`` checkerboard Metropolis sweeps of ``spins bool[R, L, L]``
+    (even L) with uniform ``j`` and ``h``; returns the new ``bool[R, L, L]``.
+
+    A CPU tensor takes :func:`checkerboard_multi_sweep_plain`; a CUDA tensor
+    launches the kernel (counted in ``checkerboard_multi_sweep.launches``)
+    or raises, also when ``L * L`` bytes exceed a block's shared memory."""
+    R, L = _check_lattice(spins)
+    _build.check(spins, "spins", torch.bool, (R, L, L), spins.device)
+    if not _build.use_kernel(spins.device):
+        return checkerboard_multi_sweep_plain(spins, seed, beta, j, h, nsweeps)
+    if L * L > MAX_SHARED_BYTES:
+        raise ValueError(f"L={L}: both colour planes ({L * L} bytes) exceed a "
+                         f"block's {MAX_SHARED_BYTES} bytes of shared memory")
+    out = torch.empty_like(spins)
+    table = accept_table(beta, j, h, spins.device)
+    k0, k1 = seed_words(seed)
+    _build.launch("ising_checkerboard", spins, out, table, k0, k1, R, L, nsweeps)
+    checkerboard_multi_sweep.launches += 1
+    return out
+
+
+checkerboard_multi_sweep.launches = 0

@@ -158,7 +158,7 @@ class QmcIsingGraph:
         replicas: int = 1,
         seed: int = 0,
         state=None,
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
     ):
         self.device = torch.device(device)
         self.edges = list(edges)

@@ -91,7 +91,7 @@ def tfim_model(
     longitudinal: float = 0.0,
     nvars: int | None = None,
     *,
-    device: torch.device | str,
+    device: torch.device | str = "cuda",
 ) -> BondModel:
     """The TFIM bond model
     ``H = sum_ij J_ij s^z_i s^z_j + G sum_i s^x_i (+ longitudinal site terms)``

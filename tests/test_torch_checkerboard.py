@@ -1,0 +1,194 @@
+"""Kernel K1 of the port (``ops/checkerboard.py``) on the CPU: its compact
+colour planes against the JAX package's, its Philox against Random123's
+known answers, its plain version against the full-field sweep of both
+packages on the same uniforms, and ``LatticeIsing`` against exact
+enumeration of a 4x4 lattice."""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from isingmontecarlo_tpu.classical import metropolis as jmetro
+from isingmontecarlo_tpu.ops import checkerboard as jcb
+from isingmontecarlo_tpu_torch import LatticeIsing, ops
+from isingmontecarlo_tpu_torch.classical import metropolis as tmetro
+from isingmontecarlo_tpu_torch.ops import _build
+from isingmontecarlo_tpu_torch.ops import checkerboard as cb
+
+from torch_port_utils import (
+    assert_equal_where_decided,
+    checkerboard_uniforms,
+    decided_replicas,
+    np_,
+)
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("R,L", [(3, 8), (2, 6), (1, 2)])
+def test_split_merge_match_jax(R, L):
+    s = np.random.default_rng(L).random((R, L, L)) < 0.5
+    eo = cb.split_colors(torch.from_numpy(s))
+    np.testing.assert_array_equal(eo.numpy(), np.asarray(jcb.split_colors(jnp.asarray(s))))
+    assert eo.shape == (R, 2, L, L // 2) and eo.dtype == torch.int8
+    back = cb.merge_colors(eo)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jcb.merge_colors(jnp.asarray(eo.numpy()))))
+    np.testing.assert_array_equal(back.numpy().astype(bool), s)
+
+
+@pytest.mark.parametrize("L", [8, 6])
+def test_compact_neighbour_sums_match_full_field(L):
+    sf = torch.from_numpy(np.random.default_rng(L).integers(0, 2, (2, L, L)).astype(np.int64))
+    full = (torch.roll(sf, 1, -1) + torch.roll(sf, -1, -1)
+            + torch.roll(sf, 1, -2) + torch.roll(sf, -1, -2))
+    want = cb.split_planes(full)
+    eo = cb.split_planes(sf)
+    for c in (0, 1):
+        assert torch.equal(cb.plane_neighbour_sums(eo[:, 1 - c], c), want[:, c])
+
+
+M32 = 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((M32,) * 4, (M32, M32), (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_philox_known_answers(ctr, key, want):
+    got = cb.philox4x32(*ctr, *key)
+    assert tuple(int(w) for w in got) == want
+
+
+def test_plane_uniforms_follow_the_counter_layout():
+    """Site i of plane c in sweep t of replica r draws word i % 4 of
+    Philox((i // 4, t, c, r), seed words): the layout the CUDA kernel
+    shares, whatever its launch geometry. L=6 makes groups straddle rows."""
+    seed, R, L, t = (7 << 32) + 12345, 3, 6, 4
+    k0, k1 = cb.seed_words(seed)
+    assert (k0, k1) == (12345, 7)
+    for c in (0, 1):
+        u = cb.plane_uniforms(seed, R, L, t, c, "cpu").reshape(R, -1)
+        for r, i in itertools.product(range(R), range(L * L // 2)):
+            word = int(cb.philox4x32(i // 4, t, c, r, k0, k1)[i % 4])
+            assert float(u[r, i]) == (word >> 8) * 2.0 ** -24
+
+
+@pytest.mark.parametrize("h", [0.0, 0.5])
+@pytest.mark.parametrize("beta", [0.3, 0.6])
+def test_plain_planes_equal_full_field_and_jax(beta, h):
+    """Three sweeps at L=8, R=16, j=-1 with JAX's own uniforms: K1's plain
+    half-sweeps on the compact split of the uniforms equal the port's
+    full-field ``checkerboard_sweep`` bit for bit, and both equal JAX's
+    ``checkerboard_sweep`` in every replica whose draws sit clear of their
+    thresholds."""
+    R, L, j = 16, 8, -1.0
+    spins = np.random.default_rng(1).random((R, L, L)) < 0.5
+    table = cb.accept_table(beta, j, h, "cpu")
+
+    def planes(sp, *us):
+        eo = cb.split_colors(sp)
+        for u in us:
+            for c in (0, 1):
+                eo = cb.half_sweep(eo, c, cb.split_planes(u[c])[:, c], table)
+        return cb.merge_colors(eo).to(torch.bool)
+
+    def full(sp, *us):
+        for u in us:
+            sp = tmetro.checkerboard_sweep(sp, u, beta, j, h)
+        return sp
+
+    keys = jax.random.split(jax.random.key(int(10 * beta + 4 * h)), 3)
+    us = [checkerboard_uniforms(k, (R, L, L)) for k in keys]
+    sp = torch.from_numpy(spins)
+    assert torch.equal(planes(sp, *us), full(sp, *us))
+
+    want = jnp.asarray(spins)
+    for k in keys:
+        want = jmetro.checkerboard_sweep(want, k, jnp.float32(beta), jnp.float32(j),
+                                         jnp.float32(h))
+    decided, got = decided_replicas(lambda *u: full(sp, *u), *us)
+    assert_equal_where_decided(got, want, decided)
+    assert not torch.equal(got, sp)
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    sp = torch.from_numpy(np.random.default_rng(2).random((3, 6, 6)) < 0.5)
+    ops.reset_launch_counts()
+    got = ops.checkerboard_multi_sweep(sp, 11, 0.4, -1.0, 0.3, 5)
+    want = ops.checkerboard_multi_sweep_plain(sp, 11, 0.4, -1.0, 0.3, 5)
+    assert torch.equal(got, want) and got.dtype == torch.bool
+    assert not torch.equal(got, sp)
+    assert ops.launch_counts()["checkerboard_multi_sweep"] == 0
+
+
+def test_odd_l_raises():
+    sp = torch.zeros((2, 5, 5), dtype=torch.bool)
+    with pytest.raises(ValueError, match="even L"):
+        ops.checkerboard_multi_sweep(sp, 0, 0.4, -1.0, 0.0, 1)
+    with pytest.raises(ValueError, match="even L"):
+        LatticeIsing(5, replicas=2, device="cpu")
+
+
+def test_l_above_shared_memory_raises_before_launch(monkeypatch):
+    """The kernel path refuses L*L > 232,448 bytes before it launches
+    anything (here with the dispatch forced to the kernel path)."""
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(_build, "use_kernel", lambda device: True)
+    monkeypatch.setattr(_build, "launch", no_launch)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.checkerboard_multi_sweep(torch.zeros((1, 484, 484), dtype=torch.bool),
+                                     0, 0.4, -1.0, 0.0, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_equals_plain_and_refuses_large_l():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    sp = torch.rand((3, 6, 6), device="cuda") < 0.5
+    got = ops.checkerboard_multi_sweep(sp, 3, 0.4, -1.0, 0.3, 5)
+    assert torch.equal(got, ops.checkerboard_multi_sweep_plain(sp, 3, 0.4, -1.0, 0.3, 5))
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.checkerboard_multi_sweep(torch.zeros((1, 484, 484), dtype=torch.bool,
+                                                 device="cuda"), 0, 0.4, -1.0, 0.0, 1)
+
+
+def _exact_mean_energy(L, beta, j, h):
+    """<E> on the periodic L x L lattice by enumerating all 2^(L*L) states."""
+    n = L * L
+    idx = np.arange(1 << n, dtype=np.int64)
+    s = (((idx[:, None] >> np.arange(n)) & 1) * 2 - 1).reshape(-1, L, L).astype(np.float64)
+    e = j * ((s * np.roll(s, -1, 2)).sum((1, 2)) + (s * np.roll(s, -1, 1)).sum((1, 2)))
+    e -= h * s.sum((1, 2))
+    w = np.exp(-beta * (e - e.min()))
+    return float((e * w).sum() / w.sum())
+
+
+@pytest.mark.parametrize("beta,h", [(0.3, 0.0), (0.6, 0.3)])
+def test_lattice_ising_matches_exact_enumeration(beta, h):
+    """K1's plain version through ``LatticeIsing``: the mean energy of a 4x4
+    lattice within 5 standard errors (over replicas) of exact enumeration.
+    At beta=0.6 the chains start ordered along the field: from a random
+    start half of them would sit in the reversed phase, whose escape over a
+    16-bond domain-wall barrier takes ~10^4 sweeps."""
+    L, R, j = 4, 256, -1.0
+    state = None if beta < 0.5 else np.ones((L, L), bool)
+    g = LatticeIsing(L, j=j, h=h, replicas=R, seed=5, state=state, device="cpu")
+    g.run_sweeps(50, beta)
+    es = []
+    for _ in range(100):
+        g.run_sweeps(2, beta)
+        es.append(np_(g.get_energy()))
+    per_replica = np.mean(es, axis=0)
+    mean, se = per_replica.mean(), per_replica.std(ddof=1) / np.sqrt(R)
+    exact = _exact_mean_energy(L, beta, j, h)
+    assert abs(mean - exact) < 5 * se, (mean, se, exact)
+    assert g.state_ref().shape == (R, L, L) and g.clone_state().dtype == bool
+    assert np_(g.get_magnetization()).shape == (R,)

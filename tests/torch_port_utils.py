@@ -1,6 +1,6 @@
-"""Shared helpers of the ``test_torch_*`` files: move JAX models and states
-into the PyTorch port through numpy, and reproduce the JAX sweep's random
-draws from its key so both packages run the same chain."""
+"""Shared helpers of the ``test_torch_*`` files: move JAX models, tables and
+states into the PyTorch port through numpy, and reproduce the JAX sweeps'
+random draws from their keys so both packages run the same chain."""
 
 from __future__ import annotations
 
@@ -89,3 +89,85 @@ class JaxKeyDraws:
     def next(self) -> JaxSweepDraws:
         self.key, k_diag, _k_rvb, k_clust, k_free = jax.random.split(self.key, 5)
         return JaxSweepDraws(k_diag, k_clust, k_free)
+
+
+# -- classical engine ---------------------------------------------------------
+
+GRAPH_TABLE_FIELDS = ("neigh", "nj", "biases", "site_color", "n_site_colors",
+                      "edges", "ej", "edge_color", "n_edge_colors")
+
+
+def torch_tables(jt):
+    """The port's GraphTables from a JAX GraphTables, on the CPU."""
+    return convert.graph_tables_from_numpy(
+        **{k: (getattr(jt, k) if k.startswith("n_") else np.asarray(getattr(jt, k)))
+           for k in GRAPH_TABLE_FIELDS},
+        device="cpu",
+    )
+
+
+def spin_flip_uniforms(key, n_colors, shape):
+    """``u[n_colors, R, N]`` as ``metropolis._spin_flip_sweep`` draws them."""
+    us = []
+    for _ in range(n_colors):
+        key, sub = jax.random.split(key)
+        us.append(np.asarray(jax.random.uniform(sub, shape)))
+    return t_(np.stack(us))
+
+
+def edge_flip_uniforms(key, n_colors, R, E, importance: bool):
+    """``(u[C, R, E], u_attempt[C, E] or None)`` as
+    ``metropolis._edge_flip_sweep`` draws them."""
+    us, ua = [], []
+    for _ in range(n_colors):
+        key, sub = jax.random.split(key)
+        if importance:
+            key, ka = jax.random.split(key)
+            ua.append(np.asarray(jax.random.uniform(ka, (E,))))
+        us.append(np.asarray(jax.random.uniform(sub, (R, E))))
+    return t_(np.stack(us)), (t_(np.stack(ua)) if importance else None)
+
+
+def checkerboard_uniforms(key, shape):
+    """``u[2, R, L, L]`` as ``metropolis.checkerboard_sweep`` draws them."""
+    return spin_flip_uniforms(key, 2, shape)
+
+
+def swendsen_wang_draws(key, R, N, E):
+    """``(u_bond, coin, u_acc)`` as ``cluster.swendsen_wang_sweep`` draws them."""
+    k_bond, k_flip, k_acc = jax.random.split(key, 3)
+    return (t_(jax.random.uniform(k_bond, (R, E))),
+            t_(jax.random.bernoulli(k_flip, 0.5, (R, N))),
+            t_(jax.random.uniform(k_acc, (R, N))))
+
+
+def wolff_draws(key, R, N, E):
+    """``(u_bond, seed_site)`` as ``cluster.wolff_sweep`` draws them."""
+    k_bond, k_seed = jax.random.split(key)
+    return (t_(jax.random.uniform(k_bond, (R, E))),
+            t_(jax.random.randint(k_seed, (R,), 0, N)).long())
+
+
+def decided_replicas(run, *us, rel=4 * 2.0 ** -23):
+    """``bool[R]``: replicas whose result ``run(*us)`` does not change when
+    every float draw moves by ``rel`` relative (about 4 ulp) either way.
+    In those replicas no acceptance test sat within that margin of its
+    threshold, so a one-ulp difference of ``exp`` between XLA and PyTorch
+    cannot change the outcome; the rest are excluded from exact
+    comparisons. Also returns ``run(*us)``."""
+    def moved(f):
+        return [u * f if torch.is_floating_point(u) else u for u in us]
+
+    base = run(*us)
+    lo, hi = run(*moved(1 - rel)), run(*moved(1 + rel))
+    dims = tuple(range(1, base.dim()))
+    same = (base == lo).all(dim=dims) & (base == hi).all(dim=dims)
+    return same, base
+
+
+def assert_equal_where_decided(got, want, decided, max_excluded: int = 1):
+    """``got == want`` in every decided replica; at most ``max_excluded``
+    replicas undecided."""
+    n_out = int((~decided).sum())
+    assert n_out <= max_excluded, f"{n_out} replicas within 4 ulp of a threshold"
+    np.testing.assert_array_equal(np_(got)[np_(decided)], np_(want)[np_(decided)])
