@@ -18,6 +18,14 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
 5. The SSE main path: ``QmcIsingGraph`` on the 32x32 benchmark lattice at
    R=256, grown to steady state, then 16-step chunks; K2, K3 and K4 must
    have been launched by this run.
+5b. The SSE heat-bath path: the same lattice and run with
+   ``set_enable_heatbath(True)``; K2, K3-hb and K4 must have been launched
+   and K3 (Metropolis) not. Its mean op count must agree with phase 5's
+   (both chains sample one distribution) within 5 combined standard errors
+   and 0.5%, and an 8-site heat-bath chain must match exact
+   diagonalization. Then both 32x32 paths are timed in turns, and run 4
+   more sweeps each under ``torch.profiler``: device time by kernel and
+   the busy share.
 6. The classical main path: ``LatticeIsing(256, j=-1, replicas=64)``
    against Onsager's energy and Yang's magnetization, its marginal
    spin-flip attempts/s, then the README's ``GraphState`` quickstart on the
@@ -70,13 +78,18 @@ KERNEL_INFO = {
                     "isingmontecarlo_tpu/ops/parity_kernel.py:95"),
     "carry_decisions": ("isingmontecarlo_tpu_torch/csrc/carry_metropolis.cu",
                         "isingmontecarlo_tpu/ops/diag_carry.py:95"),
+    "carry_decisions_heatbath": ("isingmontecarlo_tpu_torch/csrc/carry_heatbath.cu",
+                                 "isingmontecarlo_tpu/ops/diag_carry.py:59"),
     "take0": ("isingmontecarlo_tpu_torch/csrc/take0.cu",
               "isingmontecarlo_tpu/ops/take_kernel.py:84"),
 }
 
 
+T_START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+    print(f"\n== {title} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def run(cmd: list[str]) -> str:
@@ -123,7 +136,7 @@ def kernel_inputs(rng, dev, K, M, R, N, C, E) -> dict:
     vq = rng.integers(0, N, size=(K, M, R))
     vq[rng.random((K, M, R)) < 0.1] = N
     idp = rng.random((M, R)) < 0.4
-    return {
+    args = {
         "parity_bits": (t(rng.random((R, N)) < 0.5), t(v_idx.astype(np.int32)),
                         t(rng.random((K, M, R)) < 0.3), t(vq.astype(np.int32))),
         "carry_decisions": (
@@ -136,6 +149,16 @@ def kernel_inputs(rng, dev, K, M, R, N, C, E) -> dict:
         "take0": (t(rng.integers(0, C, size=(C, R)).astype(np.int32)),
                   t(rng.integers(0, C, size=(E, R)).astype(np.int32))),
     }
+    # K3-hb shares K3's counts, uniforms and masks, and draws the rest from
+    # a generator of its own. bwt = beta * sum_b max_w(b) is 5120 on the
+    # 32x32 lattice at beta = 1, Gamma = 1: on the scale of M - n, so both
+    # outcomes occur.
+    hb_rng = np.random.default_rng(M * R)
+    args["carry_decisions_heatbath"] = (
+        *args["carry_decisions"][:4], t(hb_rng.random((M, R)) < 0.7),
+        t(hb_rng.uniform(0.5 * M, 0.9 * M, R).astype(np.float32)),
+    )
+    return args
 
 
 def nbytes(*tensors) -> int:
@@ -199,6 +222,8 @@ def check_kernels(dev) -> dict:
     wrappers = {
         "parity_bits": (ops.parity_bits, ops.parity_bits_plain, 20, 3),
         "carry_decisions": (ops.carry_decisions, ops.carry_decisions_plain, 20, 2),
+        "carry_decisions_heatbath": (ops.carry_decisions_heatbath,
+                                     ops.carry_decisions_heatbath_plain, 20, 1),
         "take0": (ops.take0, ops.take0_plain, 200, 50),
     }
     ragged = kernel_inputs(rng, dev, K, 37, 5, 9, 7, 5)
@@ -238,16 +263,19 @@ def check_kernels(dev) -> dict:
     return results
 
 
-def check_physics(dev) -> None:
-    """Phase 4: energy of an 8-site TFIM chain against ED."""
+def check_physics(dev, heatbath: bool = False) -> None:
+    """Phase 4 (and 5b with ``heatbath``): energy of an 8-site TFIM chain
+    against ED."""
     edges = lattice.chain(8)
     beta, gamma = 1.0, 1.0
     g = QmcIsingGraph(edges, gamma, replicas=1024, seed=11, device=dev)
+    g.set_enable_heatbath(heatbath)
     g.timesteps(100, beta)
     e = g.timesteps(400, beta).cpu().numpy()
     exact = exact_tfim_energy(edges, gamma, beta, 8)
     se = e.std() / np.sqrt(len(e))
-    print(f"8-site chain, beta={beta}, Gamma={gamma}, R=1024: E = {e.mean():.5f} "
+    print(f"8-site chain{', heat-bath' if heatbath else ''}, beta={beta}, "
+          f"Gamma={gamma}, R=1024: E = {e.mean():.5f} "
           f"+- {se:.5f} (ED {exact:.5f}, {abs(e.mean() - exact) / se:.2f} SE), "
           f"cutoff {g.cutoff}", flush=True)
     if not np.all(np.isfinite(e)) or abs(e.mean() - exact) >= 5 * se:
@@ -256,12 +284,15 @@ def check_physics(dev) -> None:
         raise AssertionError("verify() failed on the 8-site chain")
 
 
-def run_slice(dev) -> dict:
-    """Phase 5: the main path at full size, through the kernels."""
+def run_slice(dev, heatbath: bool = False, cutoff: int = 6500):
+    """Phase 5 (and 5b with ``heatbath``): the main path at full size,
+    through the kernels. Returns the printed results, the op counts
+    ``[steps, R]`` of the measured chunks and the graph."""
     beta, chunk, nchunks = 1.0, 16, 4
     t0 = time.perf_counter()
-    g = QmcIsingGraph(lattice.bench_two_d_periodic(32), 1.0, cutoff=6500,
+    g = QmcIsingGraph(lattice.bench_two_d_periodic(32), 1.0, cutoff=cutoff,
                       replicas=R, seed=7, device=dev)
+    g.set_enable_heatbath(heatbath)
     g.timesteps(48, beta)  # single steps until the cutoff is stable, then chunks
     torch.cuda.synchronize()
     print(f"32x32: grown and equilibrated in {time.perf_counter() - t0:.1f} s, "
@@ -270,7 +301,8 @@ def run_slice(dev) -> dict:
     for _ in range(nchunks):
         t1 = time.perf_counter()
         g.sse, ns, _ = multi_sweep(g.sse, beta, g.model, chunk, lambda: g.draws,
-                                   cluster_caps=g._cluster_caps, cluster_every=1)
+                                   cluster_caps=g._cluster_caps, cluster_every=1,
+                                   **g._diag_args())
         series.append(ns.cpu().numpy())  # ends with a synchronising copy
         secs += time.perf_counter() - t1
         g._maybe_grow()
@@ -290,9 +322,73 @@ def run_slice(dev) -> dict:
         "energy_ess_per_s_short_series": ess / secs,
         "series_len": nchunks * chunk,
     }
-    print("32x32 slice, Gamma=1, beta=1, R=256, cluster_every=1: "
-          + json.dumps(out), flush=True)
-    return out
+    print(f"32x32 slice{', heat-bath' if heatbath else ''}, Gamma=1, beta=1, R=256, "
+          "cluster_every=1: " + json.dumps(out), flush=True)
+    return out, ns, g
+
+
+def profile_sweeps(g: QmcIsingGraph, label: str, nsweeps: int = 4) -> None:
+    """Phase 5b: device time per sweep by kernel over ``nsweeps`` chunked
+    timesteps under ``torch.profiler``, the ten largest, and the device's
+    busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g.sse, _, _ = multi_sweep(g.sse, 1.0, g.model, nsweeps, lambda: g.draws,
+                                  cluster_caps=g._cluster_caps, **g._diag_args())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only (kernels, copies, memsets): an operator's row
+    # repeats the time of the kernels it launched.
+    rows = [(e.key, e.self_device_time_total / 1e3 / nsweeps, e.count / nsweeps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    wall_ms = 1e3 * wall / nsweeps
+    print(f"{label}: {wall_ms:.4f} ms per sweep under the profiler, device {busy:.4f} ms "
+          f"({100 * busy / wall_ms:.1f}% busy); largest, ms per sweep (calls):", flush=True)
+    for name, ms, calls in rows[:10]:
+        print(f"  {ms:.4f} ({calls:g})  {name[:90]}", flush=True)
+
+
+def time_in_turns(g_met: QmcIsingGraph, g_hb: QmcIsingGraph, chunk: int = 16) -> None:
+    """Phase 5b: ms per sweep of the two 32x32 paths, timed in turns
+    (Metropolis, heat-bath, heat-bath, Metropolis; one chunk each, host clock
+    around work that ends in a synchronize), so both see the same host."""
+    times = {"Metropolis": [], "heat-bath": []}
+    for label, g in (("Metropolis", g_met), ("heat-bath", g_hb),
+                     ("heat-bath", g_hb), ("Metropolis", g_met)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.sse, _, _ = multi_sweep(g.sse, 1.0, g.model, chunk, lambda: g.draws,
+                                  cluster_caps=g._cluster_caps, **g._diag_args())
+        torch.cuda.synchronize()
+        times[label].append(1e3 * (time.perf_counter() - t0) / chunk)
+    ratio = np.mean(times["heat-bath"]) / np.mean(times["Metropolis"])
+    print(f"ms per sweep in turns (M, HB, HB, M; {chunk} sweeps each): "
+          f"{json.dumps(times)}; heat-bath / Metropolis {ratio:.3f}", flush=True)
+
+
+def check_heatbath_agrees(met: dict, ns_met, hb: dict, ns_hb) -> None:
+    """Phase 5b: the heat-bath and Metropolis chains sample the same
+    distribution, so their mean op counts agree within 5 combined standard
+    errors (over per-replica means) and within 0.5%."""
+    means = [ns.mean(axis=0) for ns in (ns_met, ns_hb)]
+    se = [m.std(ddof=1) / np.sqrt(len(m)) for m in means]
+    diff = float(means[1].mean() - means[0].mean())
+    comb = float(np.hypot(*se))
+    rel = abs(diff) / float(means[0].mean())
+    print(f"mean n: heat-bath {means[1].mean():.2f} +- {se[1]:.2f}, Metropolis "
+          f"{means[0].mean():.2f} +- {se[0]:.2f}: difference {diff:.2f} "
+          f"({abs(diff) / comb:.2f} combined SE, {100 * rel:.3f}%); ms per sweep "
+          f"heat-bath {hb['ms_per_sweep']:.4f}, Metropolis {met['ms_per_sweep']:.4f} "
+          f"(ratio {hb['ms_per_sweep'] / met['ms_per_sweep']:.3f})", flush=True)
+    if not (abs(diff) < 5 * comb and rel < 0.005):
+        raise AssertionError("the heat-bath chain's mean op count is off the "
+                             "Metropolis chain's")
 
 
 def onsager_energy(beta: float) -> float:
@@ -441,7 +537,7 @@ def main() -> None:
 
     phase("5. SSE main path: 32x32 benchmark lattice")
     ops.reset_launch_counts()
-    run_slice(dev)
+    met, ns_met, g_met = run_slice(dev)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(f"kernel launches in the SSE main path: {counts}", flush=True)
@@ -449,6 +545,23 @@ def main() -> None:
     if min(counts[k] for k in sse_kernels) <= 0:
         raise AssertionError(f"a kernel of the SSE path was not launched: {counts}")
     launches = {k: counts[k] for k in sse_kernels}
+
+    phase("5b. SSE heat-bath path: 32x32 benchmark lattice")
+    ops.reset_launch_counts()
+    hb, ns_hb, g_hb = run_slice(dev, heatbath=True, cutoff=6944)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"kernel launches in the SSE heat-bath path: {counts}", flush=True)
+    hb_kernels = ("parity_bits", "carry_decisions_heatbath", "take0")
+    if min(counts[k] for k in hb_kernels) <= 0 or counts["carry_decisions"] != 0:
+        raise AssertionError(f"the heat-bath path did not run through K2, K3-hb and K4 "
+                             f"alone: {counts}")
+    launches["carry_decisions_heatbath"] = counts["carry_decisions_heatbath"]
+    check_heatbath_agrees(met, ns_met, hb, ns_hb)
+    check_physics(dev, heatbath=True)
+    time_in_turns(g_met, g_hb)
+    profile_sweeps(g_met, "32x32 Metropolis")
+    profile_sweeps(g_hb, "32x32 heat-bath")
 
     phase("6. classical main path: 256^2 lattice")
     ops.reset_launch_counts()
@@ -465,6 +578,7 @@ def main() -> None:
          "launches": launches[name], **kernel_results[name]}
         for name, (src, rep) in KERNEL_INFO.items()
     ]}))
+    print(f"all phases done in {time.perf_counter() - T_START:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from isingmontecarlo_tpu_torch.classical.metropolis import tables_from_numpy
+from isingmontecarlo_tpu_torch.sse.diagonal import HeatBathTables
 from isingmontecarlo_tpu_torch.sse.ising import SseState
 from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import OpString
@@ -44,6 +45,15 @@ def sse_state_from_numpy(*, bond, inputs, outputs, state,
         ),
         state=_t(state, torch.bool, device),
     )
+
+
+def heatbath_tables_from_numpy(cum_max_w, total,
+                               device: torch.device | str) -> HeatBathTables:
+    """:class:`HeatBathTables` from the JAX tables' ``cum_max_w`` (``[NB]``
+    or ``[R, NB]``) and ``total``, so both packages search the same floats
+    (``torch.cumsum`` may round non-integer weights otherwise)."""
+    return HeatBathTables(cum_max_w=_t(cum_max_w, torch.float32, device),
+                          total=_t(total, torch.float32, device))
 
 
 # The port's GraphTables from the JAX GraphTables' fields (numpy arrays and

@@ -9,6 +9,8 @@ from isingmontecarlo_tpu_torch.ops.checkerboard import (
 )
 from isingmontecarlo_tpu_torch.ops.diag_carry import (
     carry_decisions,
+    carry_decisions_heatbath,
+    carry_decisions_heatbath_plain,
     carry_decisions_plain,
 )
 from isingmontecarlo_tpu_torch.ops.parity_kernel import (
@@ -18,7 +20,8 @@ from isingmontecarlo_tpu_torch.ops.parity_kernel import (
 from isingmontecarlo_tpu_torch.ops.take_kernel import take0, take0_plain
 
 # The wrappers whose ``launches`` count the kernel launches of a run.
-KERNELS = (checkerboard_multi_sweep, parity_bits, carry_decisions, take0)
+KERNELS = (checkerboard_multi_sweep, parity_bits, carry_decisions,
+           carry_decisions_heatbath, take0)
 
 
 def reset_launch_counts() -> None:
@@ -33,6 +36,8 @@ def launch_counts() -> dict[str, int]:
 __all__ = [
     "KERNELS",
     "carry_decisions",
+    "carry_decisions_heatbath",
+    "carry_decisions_heatbath_plain",
     "carry_decisions_plain",
     "checkerboard_multi_sweep",
     "checkerboard_multi_sweep_plain",

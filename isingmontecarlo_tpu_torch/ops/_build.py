@@ -44,6 +44,8 @@ _SIGNATURES = {
     "ising_parity_bits": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # n0, u0, idp, dgp, num_ins, num_rem, insert, remove, M, R, stream
     "ising_carry_metropolis": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # n0, u0, idp, dgp, insw, bwt, insert, remove, M, R, stream
+    "ising_carry_heatbath": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

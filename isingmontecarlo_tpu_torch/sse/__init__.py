@@ -1,16 +1,23 @@
 """Stochastic series expansion QMC for the transverse-field Ising model
-(port of ``isingmontecarlo_tpu.sse``: the Metropolis diagonal update, the
-cluster update and the ``QmcIsingGraph`` stepping API)."""
+(port of ``isingmontecarlo_tpu.sse``: the Metropolis and heat-bath diagonal
+updates, the cluster update and the ``QmcIsingGraph`` stepping API)."""
 
-from isingmontecarlo_tpu_torch.sse import cluster, diagonal, opstring
-from isingmontecarlo_tpu_torch.sse.cluster import cluster_update_impl, segment_graph
-from isingmontecarlo_tpu_torch.sse.diagonal import diagonal_update
+from isingmontecarlo_tpu_torch.sse import cluster, debug, diagonal, opstring
+from isingmontecarlo_tpu_torch.sse.cluster import (
+    cluster_update, cluster_update_impl, segment_graph,
+)
+from isingmontecarlo_tpu_torch.sse.diagonal import (
+    HeatBathTables, diagonal_update, make_heatbath_tables,
+)
 from isingmontecarlo_tpu_torch.sse.ising import (
     Draws,
     GeneratorDraws,
+    HamInfo,
     QmcIsingGraph,
     SseState,
     multi_sweep,
+    new_qmc,
+    new_qmc_from_graph,
     resample_free_spins,
     sweep,
 )
@@ -21,14 +28,21 @@ __all__ = [
     "BondModel",
     "Draws",
     "GeneratorDraws",
+    "HamInfo",
+    "HeatBathTables",
     "OpString",
     "QmcIsingGraph",
     "SseState",
     "cluster",
+    "cluster_update",
     "cluster_update_impl",
+    "debug",
     "diagonal",
     "diagonal_update",
+    "make_heatbath_tables",
     "multi_sweep",
+    "new_qmc",
+    "new_qmc_from_graph",
     "opstring",
     "resample_free_spins",
     "segment_graph",

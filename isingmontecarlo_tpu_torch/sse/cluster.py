@@ -211,6 +211,18 @@ def root_flip_prob(lab_in, lab_out, valid_op, w_cur, w_flip, SL: int,
     return (prob * torch.exp(acc_logr)).clamp(max=1.0), acc_frozen
 
 
+def cluster_update(ops: OpString, state: torch.Tensor, draw_uniform: Callable,
+                   model: BondModel, prob: float = 0.5,
+                   label_cap: int | None = None, edge_cap: int | None = None):
+    """Flip every spacetime cluster with probability ``prob`` times its
+    weight ratio (``flip_each_cluster_rng``, ``cluster.rs:18-172``): build
+    the :func:`segment_graph` and run :func:`cluster_update_impl` on it.
+    Returns ``(ops, state)``."""
+    sg = segment_graph(ops, model)
+    return cluster_update_impl(ops, state, draw_uniform, model, prob, label_cap,
+                               edge_cap, sg)
+
+
 def cluster_update_impl(ops: OpString, state: torch.Tensor,
                         draw_uniform: Callable, model: BondModel,
                         prob: float, label_cap: int | None,

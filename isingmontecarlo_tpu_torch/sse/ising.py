@@ -5,7 +5,7 @@ reference ``QmcIsingGraph``, ``src/sse/qmc_ising.rs:28-46, 644-795``).
 
 A timestep (``qmc_ising.rs:644-795``):
 
-1. Metropolis diagonal sweep;
+1. diagonal sweep (Metropolis, or heat-bath when enabled);
 2. cluster update (weighted when ``h != 0``);
 3. resample spins that carry no op;
 4. grow the cutoff ``M = max(M, n + n/2)`` (on the host, between chunks).
@@ -18,14 +18,21 @@ the model's device (Philox on CUDA).
 
 from __future__ import annotations
 
+import contextlib
+import sys
 from typing import Any, Callable, NamedTuple, Protocol, Sequence
 
+import numpy as np
 import torch
 
-from isingmontecarlo_tpu_torch.lattice import Edge, nvars_from_edges
+from isingmontecarlo_tpu_torch.analysis import autocorr as _ac
+from isingmontecarlo_tpu_torch.lattice import Edge, edge_arrays, nvars_from_edges
 from isingmontecarlo_tpu_torch.sse import cluster as _cluster
+from isingmontecarlo_tpu_torch.sse import debug as _debug
 from isingmontecarlo_tpu_torch.sse import opstring as _ops
-from isingmontecarlo_tpu_torch.sse.diagonal import diagonal_update
+from isingmontecarlo_tpu_torch.sse.diagonal import (
+    HeatBathTables, diagonal_update, make_heatbath_tables,
+)
 from isingmontecarlo_tpu_torch.sse.model import BondModel, tfim_model
 
 
@@ -34,6 +41,25 @@ class SseState(NamedTuple):
 
     ops: _ops.OpString
     state: torch.Tensor
+
+
+class HamInfo(NamedTuple):
+    """Data required to evaluate the Hamiltonian (``qmc_ising.rs:890-905``).
+
+    Equality follows the reference's ``PartialEq``: edges and transverse
+    field only (``qmc_ising.rs:898-902``)."""
+
+    edges: tuple
+    transverse: float
+    longitudinal: float
+    nvars: int
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, HamInfo) and self.edges == other.edges
+                and self.transverse == other.transverse)
+
+    def __ne__(self, other) -> bool:
+        return not self.__eq__(other)
 
 
 class Draws(Protocol):
@@ -85,16 +111,19 @@ def resample_free_spins(sse: SseState, fresh: torch.Tensor, model: BondModel,
 
 def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
           cluster_caps: tuple[int, int] | None = None,
-          do_cluster: bool = True) -> SseState:
+          do_cluster: bool = True, hb: HeatBathTables | None = None,
+          heatbath: bool = False, bond_scale: torch.Tensor | None = None) -> SseState:
     """One timestep (``qmc_ising.rs:644-795`` minus cutoff growth).
 
     ``do_cluster=False`` skips the cluster update and free-spin resample
     (``multi_sweep``'s ``cluster_every`` thinning). ``cluster_caps`` are the
     host-tracked ``(label_cap, edge_cap)`` of the cluster label problem;
-    without them the cluster update labels at full size, never skipped."""
+    without them the cluster update labels at full size, never skipped.
+    ``hb``, ``heatbath`` and ``bond_scale`` go to :func:`diagonal_update`."""
     ops, state = sse
     M, R = ops.bond.shape
-    ops = diagonal_update(ops, state, beta, draws.diagonal((3, M, R)), model)
+    ops = diagonal_update(ops, state, beta, draws.diagonal((3, M, R)), model,
+                          hb=hb, heatbath=heatbath, bond_scale=bond_scale)
     if not do_cluster:
         return SseState(ops, state)
     if cluster_caps is not None:
@@ -118,7 +147,9 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
 def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
                 next_draws: Callable[[], Draws],
                 cluster_caps: tuple[int, int] | None = None,
-                cluster_every: int = 1, collect_states: bool = False):
+                cluster_every: int = 1, collect_states: bool = False,
+                hb: HeatBathTables | None = None, heatbath: bool = False,
+                bond_scale: torch.Tensor | None = None):
     """``nsweeps`` timesteps; ``next_draws()`` gives each one's draws.
 
     The cluster update runs on every ``cluster_every``-th timestep only
@@ -127,7 +158,8 @@ def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
     ns, states = [], []
     for i in range(nsweeps):
         sse = sweep(sse, beta, model, next_draws(), cluster_caps=cluster_caps,
-                    do_cluster=i % cluster_every == cluster_every - 1)
+                    do_cluster=i % cluster_every == cluster_every - 1,
+                    hb=hb, heatbath=heatbath, bond_scale=bond_scale)
         ns.append(_ops.op_count(sse.ops))
         if collect_states:
             states.append(sse.state)
@@ -142,6 +174,21 @@ def cap_counts(ops: _ops.OpString, model: BondModel):
     n_const = (model.is_constant[b] & occ).sum(dim=0)
     n_multi = (occ & (model.arity()[b] >= 2)).sum(dim=0)
     return n_const.max(), n_multi.max()
+
+
+def new_qmc(edges, transverse, longitudinal=0.0, cutoff=None, *, replicas=1,
+            seed=0, state=None, device: torch.device | str = "cuda"):
+    """Free-function constructor (``new_qmc``, ``qmc_ising.rs:49-65``)."""
+    return QmcIsingGraph(edges, transverse, longitudinal, cutoff,
+                         replicas=replicas, seed=seed, state=state, device=device)
+
+
+def new_qmc_from_graph(graph_state, transverse, longitudinal=0.0, *, seed=0,
+                       device: torch.device | str = "cuda"):
+    """Seed a QMC run from classical-MC states (``new_qmc_from_graph``,
+    ``qmc_ising.rs:68-77``)."""
+    return QmcIsingGraph.new_from_graph_state(graph_state, transverse, longitudinal,
+                                              seed=seed, device=device)
 
 
 class QmcIsingGraph:
@@ -169,6 +216,8 @@ class QmcIsingGraph:
         self.replicas = replicas
         self.draws = GeneratorDraws(
             torch.Generator(device=self.device).manual_seed(seed))
+        self._heatbath = False
+        self._hb_tables: HeatBathTables | None = None
         # Cold start: the cutoff has not tracked n + n/2 yet, so stepping
         # begins with single timesteps (see timesteps_measure); the
         # no-growth streak persists across calls.
@@ -181,16 +230,71 @@ class QmcIsingGraph:
         if state is None:
             spins = self.draws.free_spins((replicas, self.nvars))
         else:
-            spins = torch.as_tensor(state, dtype=torch.bool, device=self.device)
-            if spins.dim() == 1:
-                spins = spins[None].expand(replicas, self.nvars)
-            spins = spins.contiguous()
+            spins = self._spins(state)
         cutoff = max(cutoff or 0, self.nvars, 8)
         self.sse = SseState(
             ops=_ops.empty_opstring(cutoff, replicas, self.model.max_legs,
                                     device=self.device),
             state=spins,
         )
+
+    # -- constructors ------------------------------------------------------
+
+    @classmethod
+    def new_with_rng(cls, edges, transverse, longitudinal=0.0, cutoff=None, *,
+                     replicas=1, seed=0, state=None,
+                     device: torch.device | str = "cuda"):
+        """``QmcIsingGraph::new_with_rng`` (``qmc_ising.rs:118-148``)."""
+        return cls(edges, transverse, longitudinal, cutoff, replicas=replicas,
+                   seed=seed, state=state, device=device)
+
+    @classmethod
+    def new_from_graph_state(cls, graph_state, transverse, longitudinal=0.0, *,
+                             seed=0, device: torch.device | str = "cuda"):
+        """``new_from_graph`` (``qmc_ising.rs:151-166``): seed the quantum
+        simulation from a classical :class:`GraphState`'s replicas."""
+        spins = graph_state.state_ref()
+        return cls(graph_state.edges, transverse, longitudinal,
+                   replicas=spins.shape[0], seed=seed, state=spins, device=device)
+
+    # -- Hamiltonian access (qmc_ising.rs:169-205) --------------------------
+
+    def make_haminfo(self) -> HamInfo:
+        """``qmc_ising.rs:169-176``."""
+        return HamInfo(edges=tuple((tuple(e), float(j)) for e, j in self.edges),
+                       transverse=self.transverse, longitudinal=self.longitudinal,
+                       nvars=self.nvars)
+
+    def hamiltonian(self, bond: int, inputs, outputs) -> float:
+        """Matrix element of ``bond`` for the given leg substates
+        (``qmc_ising.rs:179-205``), from the compiled tables."""
+        si = sum(1 << l for l, v in enumerate(inputs) if v)
+        so = sum(1 << l for l, v in enumerate(outputs) if v)
+        return float(self.model.full_w[bond, si, so])
+
+    # -- manager/state swap (qmc_ising.rs:563-602) --------------------------
+
+    def can_swap_managers(self, other: "QmcIsingGraph") -> bool:
+        """Graphs can swap when shapes agree (``qmc_ising.rs:563-591``; the
+        Hamiltonians may differ)."""
+        return (self.nvars == other.nvars and self.replicas == other.replicas
+                and self.model.nbonds == other.model.nbonds)
+
+    def swap_manager_and_state(self, other: "QmcIsingGraph") -> None:
+        """Exchange op strings and states with another graph
+        (``qmc_ising.rs:593-602``)."""
+        if not self.can_swap_managers(other):
+            raise ValueError("graphs of different shapes cannot swap managers")
+        self.sse, other.sse = other.sse, self.sse
+
+    # -- toggles (qmc_ising.rs:435-486) ------------------------------------
+
+    def set_enable_heatbath(self, enable: bool) -> None:
+        """Use the heat-bath diagonal update in every timestep
+        (``qmc_ising.rs:443-486``)."""
+        self._heatbath = bool(enable)
+        if enable and self._hb_tables is None:
+            self._hb_tables = make_heatbath_tables(self.model)
 
     def set_cluster_every(self, k: int) -> None:
         """Run the cluster update and free-spin resample on every ``k``-th
@@ -200,13 +304,95 @@ class QmcIsingGraph:
             raise ValueError(f"cluster_every must be >= 1, got {k}")
         self._cluster_every = int(k)
 
+    def _diag_args(self) -> dict:
+        return dict(hb=self._hb_tables if self._heatbath else None,
+                    heatbath=self._heatbath)
+
+    # -- accessors ---------------------------------------------------------
+
     @property
     def cutoff(self) -> int:
         return self.sse.ops.cutoff
 
+    def get_cutoff(self) -> int:
+        """``qmc_ising.rs:532``."""
+        return self.cutoff
+
+    def set_cutoff(self, cutoff: int) -> None:
+        """Grow the op-string capacity (``qmc_ising.rs:537``; shrinking is a
+        no-op, since slots above the old cutoff are identities)."""
+        self.sse = self.sse._replace(ops=_ops.grow(self.sse.ops, cutoff))
+
+    def get_nvars(self) -> int:
+        return self.nvars
+
+    def get_edges(self):
+        return self.edges
+
+    def get_transverse_field(self) -> float:
+        return self.transverse
+
+    def get_longitudinal_field(self) -> float:
+        return self.longitudinal
+
+    def _spins(self, state) -> torch.Tensor:
+        spins = torch.as_tensor(state, dtype=torch.bool, device=self.device)
+        if spins.dim() == 1:
+            spins = spins[None].expand(self.replicas, self.nvars)
+        return spins.contiguous()
+
+    def set_state(self, state) -> None:
+        """Overwrite the p=0 state ``bool[R, N]`` or ``bool[N]``
+        (``state_mut``, ``qmc_ising.rs:497``)."""
+        self.sse = self.sse._replace(state=self._spins(state))
+
+    def state_mut(self):
+        """Context manager yielding a host copy of the p=0 state, committed
+        on exit (``state_mut``, ``qmc_ising.rs:497``)::
+
+            with g.state_mut() as s:
+                s[:, 0] = True
+        """
+
+        @contextlib.contextmanager
+        def _ctx():
+            s = self.clone_state()
+            yield s
+            self.set_state(s)
+
+        return _ctx()
+
     def get_n(self) -> torch.Tensor:
         """Op count per replica ``i32[R]``."""
         return _ops.op_count(self.sse.ops)
+
+    def get_bond_count(self, bond: int) -> torch.Tensor:
+        """Ops at ``bond`` per replica, ``i32[R]`` (``qmc_stepper.rs:14``)."""
+        return _ops.bond_counts(self.sse.ops, self.model.nbonds)[:, bond]
+
+    def state_ref(self) -> torch.Tensor:
+        return self.sse.state
+
+    def clone_state(self) -> np.ndarray:
+        """A host copy of the p=0 state ``bool[R, N]``."""
+        return self.sse.state.cpu().numpy().copy()
+
+    def into_vec(self) -> np.ndarray:
+        """The p=0 state as a host array (``qmc_ising.rs:507-510``)."""
+        return self.clone_state()
+
+    def get_manager_ref(self) -> _ops.OpString:
+        """The op string, the reference's op manager
+        (``qmc_ising.rs:548-550``)."""
+        return self.sse.ops
+
+    def get_manager_mut(self) -> _ops.OpString:
+        """``qmc_ising.rs:553-555``: mutate the tensors in place, or assign
+        ``graph.sse = graph.sse._replace(ops=...)``."""
+        return self.sse.ops
+
+    def get_offset(self) -> float:
+        return self.model.offset
 
     def get_energy_for_average_n(self, average_n, beta) -> torch.Tensor:
         """``E = -<n>/beta + offset`` (``qmc_ising.rs:805-809``)."""
@@ -216,6 +402,81 @@ class QmcIsingGraph:
     def verify(self) -> bool:
         """Worldline integrity of every replica (``qmc_ising.rs:824-861``)."""
         return bool(_ops.verify(self.sse.ops, self.sse.state, self.model).all())
+
+    def imaginary_time_states(self) -> torch.Tensor:
+        """All propagated states ``bool[M, R, N]``; O(M·R·N) memory, so for
+        deep strings use :meth:`imaginary_time_fold`."""
+        return _ops.itime_states(self.sse.ops, self.sse.state, self.model)
+
+    def imaginary_time_fold(self, fold_fn, init):
+        """Fold ``fold_fn(acc, state_at_p)`` over all ``M`` propagated
+        states (``imaginary_time_fold``, ``qmc_stepper.rs:165-167``)."""
+        return _ops.itime_fold(self.sse.ops, self.sse.state, self.model, fold_fn, init)
+
+    # -- debug / introspection (qmc_debug.rs, qmc_ising.rs:489-494) --------
+
+    def count_diagonal_and_off(self):
+        """Per-replica (diagonal, off-diagonal) counts (``qmc_debug.rs:10``)."""
+        return _debug.count_diagonal_and_off(self.sse.ops)
+
+    def count_constant_ops(self):
+        """Per-replica constant-op counts (``qmc_debug.rs:28``)."""
+        return _debug.count_constant_ops(self.sse.ops, self.model)
+
+    def print_debug(self, replica: int = 0) -> None:
+        """ASCII worldline dump of one replica (``qmc_ising.rs:489-494``)."""
+        _debug.debug_print_diagonal(self.sse.ops, self.sse.state, self.model,
+                                    replica, file=sys.stdout)
+
+    # -- autocorrelations (QmcAutoCorrelations, autocorrelations.rs:6-97) ---
+
+    def calculate_autocorrelation(self, timesteps: int, beta: float,
+                                  sampling_freq: int | None,
+                                  sample_mapper: Callable) -> np.ndarray:
+        """Run ``timesteps``, map the sampled states ``bool[T, R, N]``
+        through ``sample_mapper`` and FFT-autocorrelate along time
+        (``autocorrelations.rs:8-35``). Returns ``f32[num_samples]``."""
+        states, _ = self.timesteps_sample(timesteps, beta, sampling_freq)
+        return _ac.sample_autocorrelation(states, sample_mapper).cpu().numpy()
+
+    def calculate_variable_autocorrelation(self, timesteps: int, beta: float,
+                                           sampling_freq: int | None = None) -> np.ndarray:
+        """Autocorrelation of the spins (``autocorrelations.rs:38-50``)."""
+        states, _ = self.timesteps_sample(timesteps, beta, sampling_freq)
+        return _ac.spin_autocorrelation(states).cpu().numpy()
+
+    def calculate_spin_product_autocorrelation(
+        self, timesteps: int, beta: float, var_products: Sequence[Sequence[int]],
+        sampling_freq: int | None = None,
+    ) -> np.ndarray:
+        """Autocorrelation of spin products (``autocorrelations.rs:53-70``)."""
+        states, _ = self.timesteps_sample(timesteps, beta, sampling_freq)
+        return _ac.product_autocorrelation(states, var_products).cpu().numpy()
+
+    def calculate_bond_autocorrelation(self, timesteps: int, beta: float,
+                                       sampling_freq: int | None = None) -> np.ndarray:
+        """Autocorrelation of bond satisfaction (``qmc_ising.rs:978-998``)."""
+        states, _ = self.timesteps_sample(timesteps, beta, sampling_freq)
+        return _ac.bond_autocorrelation(states, *edge_arrays(self.edges)).cpu().numpy()
+
+    # -- stepping ----------------------------------------------------------
+
+    def single_diagonal_step(self, beta: float) -> None:
+        """One diagonal sweep only (``qmc_ising.rs:208-273``)."""
+        M, R = self.sse.ops.bond.shape
+        ops = diagonal_update(self.sse.ops, self.sse.state, beta,
+                              self.draws.diagonal((3, M, R)), self.model,
+                              **self._diag_args())
+        self.sse = self.sse._replace(ops=ops)
+        self._maybe_grow()
+
+    def single_cluster_step(self) -> None:
+        """One cluster update only (``qmc_ising.rs:275-321``)."""
+        lc, ec = self._cluster_caps or (None, None)
+        ops, state = _cluster.cluster_update(self.sse.ops, self.sse.state,
+                                             self.draws.cluster, self.model,
+                                             label_cap=lc, edge_cap=ec)
+        self.sse = SseState(ops, state)
 
     def _maybe_grow(self) -> None:
         """Cutoff growth ``M = max(M, n + n/2)`` (``qmc_ising.rs:786``),
@@ -237,7 +498,7 @@ class QmcIsingGraph:
     def timestep(self, beta: float) -> torch.Tensor:
         """One timestep; returns the state (``qmc_ising.rs:644-795``)."""
         self.sse = sweep(self.sse, beta, self.model, self.draws,
-                         cluster_caps=self._cluster_caps)
+                         cluster_caps=self._cluster_caps, **self._diag_args())
         self._maybe_grow()
         return self.sse.state
 
@@ -245,6 +506,51 @@ class QmcIsingGraph:
         """``t`` timesteps; returns the average energy per replica ``f32[R]``
         (``qmc_stepper.rs:17-20``)."""
         _, energy = self.timesteps_measure(t, beta, None, lambda acc, s: acc,
+                                           chunk=chunk)
+        return energy
+
+    def timesteps_sample(self, t: int, beta: float, sampling_freq: int | None = None,
+                         chunk: int = 16):
+        """Returns ``(states bool[num_samples, R, N], energy f32[R])``, both
+        on the device (``qmc_stepper.rs:23-40``)."""
+        samples, energy = self.timesteps_measure(
+            t, beta, [], lambda acc, s: (acc.append(s), acc)[1], sampling_freq,
+            chunk=chunk,
+        )
+        if not samples:
+            return torch.zeros((0, self.replicas, self.nvars), dtype=torch.bool,
+                               device=self.device), energy
+        return torch.stack(samples), energy
+
+    def timesteps_sample_iter(self, t: int, beta: float, sampling_freq: int | None,
+                              iter_fn: Callable[[torch.Tensor], None],
+                              chunk: int = 16) -> torch.Tensor:
+        """Call ``iter_fn(state)`` on every sample (``qmc_stepper.rs:43-73``);
+        returns the average energy per replica."""
+        _, energy = self.timesteps_measure(
+            t, beta, None, lambda acc, s: (iter_fn(s), acc)[1], sampling_freq,
+            chunk=chunk,
+        )
+        return energy
+
+    def timesteps_sample_iter_zip(self, t: int, beta: float,
+                                  sampling_freq: int | None, zip_with,
+                                  iter_fn: Callable[[Any, torch.Tensor], None],
+                                  chunk: int = 16) -> torch.Tensor:
+        """Zip samples with an iterable (``qmc_stepper.rs:97-130``):
+        ``iter_fn(next(zip_with), state)`` per sample, until the iterable is
+        exhausted."""
+        it = iter(zip_with)
+
+        def fold(acc, s):
+            try:
+                z = next(it)
+            except StopIteration:
+                return acc
+            iter_fn(z, s)
+            return acc
+
+        _, energy = self.timesteps_measure(t, beta, None, fold, sampling_freq,
                                            chunk=chunk)
         return energy
 
@@ -276,7 +582,7 @@ class QmcIsingGraph:
                 self.sse, beta, self.model, todo, lambda: self.draws,
                 cluster_caps=self._cluster_caps,
                 cluster_every=self._cluster_every if todo > 1 else 1,
-                collect_states=collect,
+                collect_states=collect, **self._diag_args(),
             )
             for i in range(todo):
                 if (done + i + 1) % freq == 0:

@@ -65,6 +65,11 @@ class BondModel(nn.Module):
         """i32[NB] number of valid legs per bond."""
         return (self.bond_vars >= 0).sum(dim=1, dtype=torch.int32)
 
+    def max_diag_w(self) -> torch.Tensor:
+        """f32[NB]: max diagonal weight per bond (heat-bath ``BondWeights``,
+        ``src/sse/qmc_traits/heatbath.rs:130-146``)."""
+        return self.diag_w.max(dim=1).values
+
 
 def class_tables(diag_w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Group bonds by identical table rows. Returns ``(cls i32[NB],

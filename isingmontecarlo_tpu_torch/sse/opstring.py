@@ -72,6 +72,16 @@ def op_count(ops: OpString) -> torch.Tensor:
     return (ops.bond >= 0).sum(dim=0, dtype=torch.int32)
 
 
+def bond_counts(ops: OpString, nbonds: int) -> torch.Tensor:
+    """Per-bond op counts ``i32[R, NB]`` (the reference's bond counters,
+    ``fast_ops.rs:45, 360-365``)."""
+    R = ops.replicas
+    b = torch.where(ops.bond >= 0, ops.bond, nbonds).long()  # row NB is dropped
+    ones = torch.ones_like(ops.bond)
+    counts = torch.zeros((nbonds + 1, R), dtype=torch.int32, device=b.device)
+    return counts.scatter_add_(0, b, ones)[:nbonds].T.contiguous()
+
+
 def op_vars(ops: OpString, model: BondModel) -> torch.Tensor:
     """i32[K, M, R]: variable per leg, ``-1`` where the leg is invalid."""
     N = model.nvars
@@ -113,6 +123,34 @@ def sorted_legs(ops: OpString, model: BondModel):
     key = torch.where(leg_var >= 0, leg_var * M + p_of_f, SORT_BIG)
     skey, order = torch.sort(key, dim=0, stable=True)
     return skey, order, leg_var
+
+
+def itime_fold(ops: OpString, state: torch.Tensor, model: BondModel, fold_fn, init):
+    """``imaginary_time_fold`` (``qmc_stepper.rs:165-167``): fold
+    ``fold_fn(acc, state_at_p)`` over the ``M`` propagated states
+    ``bool[R, N]``, the state just below each slot, without holding the
+    trajectory. A loop over ``M`` on the host; each state handed to
+    ``fold_fn`` is a fresh tensor, never written again."""
+    M, R = ops.bond.shape
+    N = model.nvars
+    vars_ = op_vars(ops, model)
+    idx = torch.where(vars_ >= 0, vars_, N).permute(1, 2, 0).long()  # [M, R, K]
+    outs = ops.outputs.permute(1, 2, 0)
+    # Column N is a dump for padded legs and identity slots.
+    prop = torch.cat([state, torch.zeros((R, 1), dtype=torch.bool, device=state.device)], 1)
+    acc = init
+    for p in range(M):
+        acc = fold_fn(acc, prop[:, :N])
+        prop = prop.scatter(1, idx[p], outs[p])
+    return acc
+
+
+def itime_states(ops: OpString, state: torch.Tensor, model: BondModel) -> torch.Tensor:
+    """All propagated imaginary-time states ``bool[M, R, N]``; memory is
+    O(M R N), for measurement at modest sizes (:func:`itime_fold` streams)."""
+    states: list[torch.Tensor] = []
+    itime_fold(ops, state, model, lambda acc, s: states.append(s), None)
+    return torch.stack(states)
 
 
 def verify(ops: OpString, state: torch.Tensor, model: BondModel) -> torch.Tensor:

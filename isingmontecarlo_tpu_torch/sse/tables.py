@@ -3,7 +3,9 @@
 The JAX package routes these through a digit-plane gather kernel and
 compare-select chains, because per-lane gathers scalarise on a TPU. On a GPU
 a gather from a small table shared by all replicas is plain indexing, which
-reads the original entries and so is bit-exact with every TPU form.
+reads the original entries and so is bit-exact with every TPU form. Likewise
+the heat-bath proposal is a plain binary search, not the TPU's two-level
+compare-count.
 """
 
 from __future__ import annotations
@@ -21,3 +23,13 @@ def bond_fetch_multi(tabs, idx: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Several per-bond tables fetched at the same index grid."""
     i = idx.long()
     return tuple(t.to(torch.int32)[i] for t in tabs)
+
+
+def searchsorted_left(table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The count of entries ``table < q`` (``searchsorted`` with
+    ``side='left'``), ``i32[M, R]``, for a sorted f32 table ``[NB]`` or
+    per-replica tables ``[R, NB]`` searched against the columns of the query
+    grid ``q f32[M, R]`` (``isingmontecarlo_tpu/sse/tables.py:151-175``)."""
+    if table.dim() == 2:
+        return torch.searchsorted(table, q.T.contiguous()).T.to(torch.int32)
+    return torch.searchsorted(table, q).to(torch.int32)

@@ -125,4 +125,5 @@ def test_wrappers_check_inputs_and_devices():
         ops.take0(t.to("meta"), t.to("meta"))
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"checkerboard_multi_sweep": 0, "parity_bits": 0,
-                                   "carry_decisions": 0, "take0": 0}
+                                   "carry_decisions": 0, "carry_decisions_heatbath": 0,
+                                   "take0": 0}

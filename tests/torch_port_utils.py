@@ -91,6 +91,46 @@ class JaxKeyDraws:
         return JaxSweepDraws(k_diag, k_clust, k_free)
 
 
+class JaxChainDraws:
+    """A port graph's ``draws`` replaying a JAX graph's timesteps from its
+    key: each ``diagonal`` call starts the next timestep's split."""
+
+    def __init__(self, key):
+        self.src = JaxKeyDraws(key)
+        self.cur = None
+
+    def diagonal(self, shape):
+        self.cur = self.src.next()
+        return self.cur.diagonal(shape)
+
+    def cluster(self, shape):
+        return self.cur.cluster(shape)
+
+    def free_spins(self, shape):
+        return self.cur.free_spins(shape)
+
+
+def port_chain_state(edges, *, transverse=1.0, longitudinal=0.0, replicas=8,
+                     seed=3, beta=1.0, nsweeps=10):
+    """Numpy ``(bond, inputs, outputs, state)`` after ``nsweeps`` timesteps
+    of the port's own chain on the CPU: a string to feed both packages
+    without compiling a JAX chain."""
+    from isingmontecarlo_tpu_torch.sse import ising as tising
+
+    g = tising.QmcIsingGraph(edges, transverse, longitudinal, replicas=replicas,
+                             seed=seed, device="cpu")
+    for _ in range(nsweeps):
+        g.timestep(beta)
+    ops = g.sse.ops
+    return tuple(np_(a) for a in (ops.bond, ops.inputs, ops.outputs, g.sse.state))
+
+
+def jax_opstring(bond, inputs, outputs):
+    from isingmontecarlo_tpu.sse.opstring import OpString
+
+    return OpString(jnp.asarray(bond), jnp.asarray(inputs), jnp.asarray(outputs))
+
+
 # -- classical engine ---------------------------------------------------------
 
 GRAPH_TABLE_FIELDS = ("neigh", "nj", "biases", "site_color", "n_site_colors",
