@@ -10,14 +10,21 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
 2. Build the kernels from ``isingmontecarlo_tpu_torch/csrc``.
 3. Each kernel against its plain PyTorch version on the card, at a small
    ragged shape and at the shapes of its main path (K2-K4: the 32x32 SSE
-   slice; K1: the 256^2 lattice at R=64, 100 sweeps): equal
-   (``torch.equal``), with both times at the latter, and each kernel's
-   bound (bytes or operations at the card's published peaks).
+   slice; K1: the 256^2 lattice at R=64, 100 sweeps, at every cluster
+   size, and 1024^2 at R=2): equal (``torch.equal``), with both times at
+   the latter, and each kernel's bound (bytes or operations at the card's
+   published peaks; for K1 also the instruction-issue bound of its inner
+   loop's SASS). K4's three entry points (``take0`` on one and on two
+   grids, ``hook_min``, ``pointer_jump``) beside ``torch.gather``, and one
+   hook round as the port ran it before (gathers, ``scatter_reduce``,
+   single jumps) beside the new one; K1's time at each cluster size at
+   R=64 and R=256.
 4. Physics: ``QmcIsingGraph`` on an 8-site TFIM chain against exact
    diagonalization, and ``verify()``.
 5. The SSE main path: ``QmcIsingGraph`` on the 32x32 benchmark lattice at
-   R=256, grown to steady state, then 16-step chunks; K2, K3 and K4 must
-   have been launched by this run.
+   R=256, grown to steady state, then 16-step chunks; K2, K3 and K4's three
+   entry points must have been launched by this run. Then the labels of
+   the grown op string from the card equal those of the plain versions.
 5b. The SSE heat-bath path: the same lattice and run with
    ``set_enable_heatbath(True)``; K2, K3-hb and K4 must have been launched
    and K3 (Metropolis) not. Its mean op count must agree with phase 5's
@@ -25,7 +32,7 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    and 0.5%, and an 8-site heat-bath chain must match exact
    diagonalization. Then both 32x32 paths are timed in turns, and run 4
    more sweeps each under ``torch.profiler``: device time by kernel and
-   the busy share.
+   the busy share; no ``scatter_reduce`` may run.
 6. The classical main path: ``LatticeIsing(256, j=-1, replicas=64)``
    against Onsager's energy and Yang's magnetization, its marginal
    spin-flip attempts/s, then the README's ``GraphState`` quickstart on the
@@ -51,15 +58,22 @@ from isingmontecarlo_tpu_torch import GraphState, LatticeIsing, lattice, ops
 from isingmontecarlo_tpu_torch.analysis import effective_sample_size
 from isingmontecarlo_tpu_torch.classical import metropolis, worm
 from isingmontecarlo_tpu_torch.ops import _build
+from isingmontecarlo_tpu_torch.ops import checkerboard as cb
 from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, multi_sweep
+from isingmontecarlo_tpu_torch.sse.cluster import (
+    N_COMPRESS, hook_compress_labels, segment_graph,
+)
 
 # Kernel shapes of the 32x32 slice at R=256: M ~ 7000 slots, N = 1024 spins,
-# label tables of C ~ 8000 rows gathered at E ~ 7000 indices.
+# label problems of C ~ 8000 labels and E ~ 7000 edges, whose tables are
+# gathered at the two [M, R] grids of the op sides.
 K, M, R, N = 2, 7000, 256, 1024
 C_TAKE, E_TAKE = 8000, 7000
 # K1's main path: the 256^2 lattice, 64 replicas, J=-1, beta=0.4, calls of
 # 100 sweeps (the JAX package's classical benchmark, bench.py:141-197).
 L_CB, R_CB, SWEEPS_CB, BETA_CB = 256, 64, 100, 0.4
+# K1 beyond one block's shared memory: only c = 8 CTAs a replica hold it.
+L_BIG, R_BIG, SWEEPS_BIG = 1024, 2, 4
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for K1's 32-bit integer work.
@@ -70,6 +84,9 @@ F32_OPS_PER_S = 67e12
 # neighbour sum (3 adds), table index, shift, int-to-float, multiply,
 # compare and XOR (6).
 K1_OPS_PER_ATTEMPT = 98 / 4 + 9
+# Hopper issues one warp instruction per clock on each of an SM's four
+# schedulers.
+WARP_ISSUE_PER_CLOCK_PER_SM = 4
 
 KERNEL_INFO = {
     "checkerboard_multi_sweep": ("isingmontecarlo_tpu_torch/csrc/checkerboard.cu",
@@ -80,9 +97,16 @@ KERNEL_INFO = {
                         "isingmontecarlo_tpu/ops/diag_carry.py:95"),
     "carry_decisions_heatbath": ("isingmontecarlo_tpu_torch/csrc/carry_heatbath.cu",
                                  "isingmontecarlo_tpu/ops/diag_carry.py:59"),
+    # K4: the gather, and the hook and the jumps that took the TPU kernel
+    # (through _take0_fast) in the hook of isingmontecarlo_tpu/sse/cluster.py:561-570.
     "take0": ("isingmontecarlo_tpu_torch/csrc/take0.cu",
               "isingmontecarlo_tpu/ops/take_kernel.py:84"),
+    "hook_min": ("isingmontecarlo_tpu_torch/csrc/take0.cu",
+                 "isingmontecarlo_tpu/ops/take_kernel.py:84"),
+    "pointer_jump": ("isingmontecarlo_tpu_torch/csrc/take0.cu",
+                     "isingmontecarlo_tpu/ops/take_kernel.py:84"),
 }
+SSE_K4 = ("take0", "hook_min", "pointer_jump")
 
 
 T_START = time.perf_counter()
@@ -111,6 +135,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call over ``reps`` calls after one
+    warm-up: the kernels, copies and memsets they ran, summed from
+    ``torch.profiler``, without the host's time between launches (which
+    CUDA events around a short kernel would measure instead)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
 def exact_tfim_energy(edges, gamma: float, beta: float, nvars: int) -> float:
     """<H> of ``sum J sz sz - gamma sum sx`` at ``beta`` by dense ED."""
     dim = 1 << nvars
@@ -124,7 +165,7 @@ def exact_tfim_energy(edges, gamma: float, beta: float, nvars: int) -> float:
     return float((w * z).sum() / z.sum())
 
 
-def kernel_inputs(rng, dev, K, M, R, N, C, E) -> dict:
+def kernel_inputs(rng, dev, K, M, R, N) -> dict:
     """Random arguments of each kernel at one shape, with sentinel legs."""
 
     def t(a):
@@ -146,8 +187,6 @@ def kernel_inputs(rng, dev, K, M, R, N, C, E) -> dict:
             t(rng.uniform(0, 0.6 * M, (M, R)).astype(np.float32)),
             t(rng.uniform(0, 1.2 * M, (M, R)).astype(np.float32)),
         ),
-        "take0": (t(rng.integers(0, C, size=(C, R)).astype(np.int32)),
-                  t(rng.integers(0, C, size=(E, R)).astype(np.int32))),
     }
     # K3-hb shares K3's counts, uniforms and masks, and draws the rest from
     # a generator of its own. bwt = beta * sum_b max_w(b) is 5120 on the
@@ -174,67 +213,256 @@ def bound(bytes_moved: float, operations: float = 0.0) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def inner_loop_instructions(sass: str) -> list[str] | None:
+    """The opcodes of K1's inner loop in a ``cuobjdump -sass`` listing: in
+    the 16-byte kernel (``checkerboard_kernel<true>``), the shortest span
+    from a backward branch's target to the branch that holds Philox's 20
+    multiplies (one 4-site group per trip: the loop is not unrolled)."""
+    import re
+
+    func = re.search(r"Function : (\S*checkerboard_kernelILb1E\S*)\n(.*?)(?=\n\s*Function :|\Z)",
+                     sass, re.S)
+    if func is None:
+        return None
+    body = func.group(2)
+    instrs = [(int(a, 16), op) for a, op in
+              re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)]
+    labels = {}
+    for m in re.finditer(r"^\s*(\.L_x_\d+):", body, re.M):
+        nxt = re.search(r"/\*([0-9a-f]{4,})\*/", body[m.end():])
+        if nxt:
+            labels[m.group(1)] = int(nxt.group(1), 16)
+    loops = []
+    # A branch names its target by label or by address, as the toolkit prints it.
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/[^\n]*?\bBRA\s+(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))",
+                         body):
+        at = int(m.group(1), 16)
+        target = labels.get(m.group(2)) if m.group(2) else int(m.group(3), 16)
+        if target is not None and target < at:
+            span = [op for a, op in instrs if target <= a <= at]
+            if sum(op.startswith("IMAD") for op in span) >= 20:
+                loops.append(span)
+    return min(loops, key=len) if loops else None
+
+
+def k1_issue_bound(attempts: int) -> None:
+    """Print K1's instruction-issue bound: the SASS instructions of its
+    inner loop (:func:`inner_loop_instructions` of ``cuobjdump -sass`` of
+    the built library) for every 4-site group of the call, over four warp
+    instructions per clock per SM at the card's maximum SM clock
+    (nvidia-smi); or why it was not measured."""
+    from pathlib import Path
+
+    try:
+        tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+        loop = inner_loop_instructions(run([str(tool), "-sass", str(_build.library_path())]))
+    except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+        print(f"K1 issue bound: not measured ({e})", flush=True)
+        return
+    if loop is None:
+        print("K1 issue bound: not measured (no inner loop found in the listing)", flush=True)
+        return
+    clocks = run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                  "--format=csv,noheader,nounits"]).split(",")
+    f_sm = 1e6 * float(clocks[1])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warp_instrs = attempts / 4 / 32 * len(loop)
+    ms = 1e3 * warp_instrs / (WARP_ISSUE_PER_CLOCK_PER_SM * n_sms * f_sm)
+    print(f"K1 issue bound: {len(loop)} SASS instructions per 4-site group in the inner "
+          f"loop ({len(loop) / 4:.2f} per attempt), {n_sms} SMs at {clocks[1].strip()} MHz "
+          f"(now {clocks[0].strip()} MHz): {ms:.4f} ms", flush=True)
+
+
 def check_checkerboard(dev) -> dict:
-    """Phase 3 for K1: kernel equals plain at a ragged shape (L=6, R=3,
-    5 sweeps, h != 0) and at the main-path shape, where both are timed."""
+    """Phase 3 for K1: kernel equals plain, at every cluster size, at
+    ragged shapes (R=3, 5 sweeps, h != 0; L=6: the byte path, L=8: bands
+    of 8 down to 1 rows), at the main-path shape, where both are timed, and
+    at L=1024; then the kernel's time at each cluster size for R=64 and
+    R=256."""
     gen = torch.Generator(device=dev).manual_seed(0)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [
         (torch.rand((3, 6, 6), generator=gen, device=dev) < 0.5, 5, 0.7, -1.0, 0.3),
+        # bands of one and two rows at c=8 and 4: both edge rows remote
+        (torch.rand((3, 8, 8), generator=gen, device=dev) < 0.5, 5, 0.7, -1.0, 0.3),
+        (torch.rand((R_BIG, L_BIG, L_BIG), generator=gen, device=dev) < 0.5,
+         SWEEPS_BIG, BETA_CB, -1.0, 0.1),
         (torch.rand((R_CB, L_CB, L_CB), generator=gen, device=dev) < 0.5,
          SWEEPS_CB, BETA_CB, -1.0, 0.0),
     ]
     for spins, nsweeps, beta, j, h in cases:
-        got = ops.checkerboard_multi_sweep(spins, 12345, beta, j, h, nsweeps)
         want = ops.checkerboard_multi_sweep_plain(spins, 12345, beta, j, h, nsweeps)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"checkerboard_multi_sweep differs from its plain "
-                                 f"version at {tuple(spins.shape)}, {nsweeps} sweeps")
+        Rc, L = spins.shape[:2]
+        for c in cb.cluster_sizes(L):
+            got = ops.checkerboard_multi_sweep(spins, 12345, beta, j, h, nsweeps, cluster=c)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"checkerboard_multi_sweep differs from its plain "
+                                     f"version at {tuple(spins.shape)}, {nsweeps} sweeps, "
+                                     f"c={c}")
         if torch.equal(got, spins):
             raise AssertionError("checkerboard_multi_sweep changed no spin")
+        print(f"checkerboard_multi_sweep equal to plain at {tuple(spins.shape)}, {nsweeps} "
+              f"sweeps, c in {cb.cluster_sizes(L)}; default c={cb.cluster_size(Rc, L, n_sms)}",
+              flush=True)
     err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    ms = cuda_ms(lambda: ops.checkerboard_multi_sweep(spins, 1, beta, j, h, nsweeps), 10)
+    c_main = cb.cluster_size(R_CB, L_CB, n_sms)
+    ms = device_ms(lambda: ops.checkerboard_multi_sweep(spins, 1, beta, j, h, nsweeps), 10)
+    call_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep(spins, 1, beta, j, h, nsweeps), 10)
     plain_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_plain(spins, 1, beta, j, h,
                                                                   nsweeps), 1)
     attempts = spins.numel() * nsweeps
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound(2 * nbytes(spins), attempts * K1_OPS_PER_ATTEMPT), "library_ms": None}
     print(f"checkerboard_multi_sweep: equal to plain (max_abs_err {err}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_by']}); {attempts / (ms * 1e-3):.4e} attempts/s in the kernel; "
+          f"{ms:.4f} ms on the device at c={c_main} ({call_ms:.4f} ms a call, CUDA events), "
+          f"plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+          f"published f32 peak); {attempts / (ms * 1e-3):.4e} attempts/s in the kernel; "
           f"spins {tuple(spins.shape)}, {nsweeps} sweeps", flush=True)
-    other = {}
-    for r, l in ((256, L_CB), (R_CB, 128)):
-        sp = torch.rand((r, l, l), generator=gen, device=dev) < 0.5
-        t = cuda_ms(lambda: ops.checkerboard_multi_sweep(sp, 1, BETA_CB, -1.0, 0.0,
-                                                         SWEEPS_CB), 5)
-        other[f"R={r} L={l}"] = {"ms": t, "attempts_per_s": sp.numel() * SWEEPS_CB / (t * 1e-3)}
-    print("checkerboard_multi_sweep at other shapes, 100 sweeps: " + json.dumps(other),
-          flush=True)
+    k1_issue_bound(attempts)
+    # Each cluster size at R=64 and R=256, in two passes (c up, then down),
+    # device time.
+    table = {}
+    for r in (R_CB, 256):
+        sp = torch.rand((r, L_CB, L_CB), generator=gen, device=dev) < 0.5
+        sizes = cb.cluster_sizes(L_CB)
+        for c in sizes + sizes[::-1]:
+            t = device_ms(lambda: ops.checkerboard_multi_sweep(sp, 1, BETA_CB, -1.0, 0.0,
+                                                               SWEEPS_CB, cluster=c), 5)
+            table.setdefault(f"R={r} c={c}", []).append(t)
+    print(f"checkerboard_multi_sweep at L={L_CB}, {SWEEPS_CB} sweeps, device ms by CTAs per "
+          f"replica, two passes (the rule picks c={c_main} at R={R_CB}, "
+          f"c={cb.cluster_size(256, L_CB, n_sms)} at R=256 on {n_sms} SMs): "
+          + json.dumps(table), flush=True)
     return res
+
+
+def label_inputs(rng, dev, S: int, E: int, Mg: int, R: int):
+    """A label problem of one shape: edges ``(u, v) [E, R]`` over ``S``
+    labels with a tenth on the dump row ``S - 1``, the identity ``P0``, the
+    labels ``P1`` after one round from it (so ``P1[x] <= x``), and two
+    ``[Mg, R]`` grids of op sides into them."""
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    u = rng.integers(0, S - 1, size=(E, R))
+    v = rng.integers(0, S - 1, size=(E, R))
+    dump = rng.random((E, R)) < 0.1
+    u[dump] = v[dump] = S - 1
+    u, v = t(u), t(v)
+    P0 = torch.arange(S, dtype=torch.int32, device=dev)[:, None].repeat(1, R)
+    P1, _ = ops.pointer_jump_plain(ops.hook_min_plain(P0, u, v, first=True), P0, N_COMPRESS)
+    return P0, P1, u, v, t(rng.integers(0, S, size=(Mg, R))), t(rng.integers(0, S, size=(Mg, R)))
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_labels(dev) -> dict:
+    """Phase 3 for K4: ``take0`` on one and two grids, ``hook_min`` (first
+    round and later) and ``pointer_jump`` equal their plain versions at a
+    ragged shape and at the 32x32 label shapes, where they are timed beside
+    ``torch.gather``, and one hook round as the port ran it before beside
+    the new one."""
+    rng = np.random.default_rng(1)
+    for S, E, Mg, r in ((37, 29, 23, 5), (C_TAKE, E_TAKE, M, R)):
+        P0, P1, u, v, s_in, s_out = label_inputs(rng, dev, S, E, Mg, r)
+        Pn = ops.hook_min_plain(P1, u, v)
+        calls = {
+            "take0 one grid": (ops.take0, ops.take0_plain, (P1, s_in)),
+            "take0 two grids": (ops.take0, ops.take0_plain, (P1, s_in, s_out)),
+            "hook_min first round": (lambda *a: ops.hook_min(*a, first=True),
+                                     lambda *a: ops.hook_min_plain(*a, first=True), (P0, u, v)),
+            "hook_min": (ops.hook_min, ops.hook_min_plain, (P1, u, v)),
+            "pointer_jump": (lambda *a: ops.pointer_jump(*a, N_COMPRESS, tag=5),
+                             lambda *a: ops.pointer_jump_plain(*a, N_COMPRESS, tag=5), (Pn, P1)),
+        }
+        for name, (kernel, plain, args) in calls.items():
+            got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name}: kernel differs from its plain version at "
+                                     f"{[tuple(a.shape) for a in args]}")
+        print(f"K4 entry points equal to plain at S={S}, E={E}, M={Mg}, R={r}: "
+              f"{', '.join(calls)}", flush=True)
+
+    def timed(name, kernel, plain, args, library=None, reps=100):
+        """Kernel and library: device time (profiler); the kernel's call
+        also from CUDA events, host included; plain: CUDA events."""
+        got, want = as_tuple(kernel(*args)), as_tuple(plain(*args))
+        err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        res = {"max_abs_err": err, "ms": device_ms(lambda: kernel(*args), reps),
+               "plain_ms": cuda_ms(lambda: plain(*args), 20),
+               **bound(nbytes(*args, *got)),
+               "library_ms": None if library is None else device_ms(library, reps)}
+        call_ms = cuda_ms(lambda: kernel(*args), reps)
+        lib_call = "" if library is None else f", {cuda_ms(library, reps):.4f} ms a call"
+        print(f"{name}: kernel {res['ms']:.4f} ms on the device ({call_ms:.4f} ms a call, "
+              f"host included), plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}), library {res['library_ms']} ms on the device{lib_call}; "
+              f"input shapes {[tuple(a.shape) for a in args]}", flush=True)
+        return res
+
+    # torch.gather on the same table with the index widened (and the two
+    # grids joined) beforehand.
+    one64, both64 = s_in.long(), torch.cat([s_in, s_out]).long()
+    timed("take0 one grid", ops.take0, ops.take0_plain, (P1, s_in),
+          lambda: torch.gather(P1, 0, one64))
+    results = {
+        "take0": timed("take0 two grids", ops.take0, ops.take0_plain, (P1, s_in, s_out),
+                       lambda: torch.gather(P1, 0, both64)),
+        "hook_min": timed("hook_min (the wrapper: copy of P, then the hook)", ops.hook_min,
+                          ops.hook_min_plain, (P1, u, v)),
+        "pointer_jump": timed("pointer_jump", lambda *a: ops.pointer_jump(*a, N_COMPRESS),
+                              lambda *a: ops.pointer_jump_plain(*a, N_COMPRESS), (Pn, P1)),
+    }
+
+    def earlier_round():  # the gathers, scatter_reduce and single jumps
+        pu, pv = ops.take0(P1, u), ops.take0(P1, v)
+        Pm = P1.scatter_reduce(0, torch.maximum(pu, pv).long(), torch.minimum(pu, pv),
+                               reduce="amin")
+        for _ in range(N_COMPRESS):
+            Pm = ops.take0(Pm, Pm)
+        return Pm, (Pm != P1).any()
+
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def new_round():
+        return ops.pointer_jump(ops.hook_min(P1, u, v), P1, N_COMPRESS, flag, 1)
+
+    if not torch.equal(earlier_round()[0], new_round()[0]):
+        raise AssertionError("the new hook round differs from the earlier one")
+    t_old, t_new = cuda_ms(earlier_round, 50), cuda_ms(new_round, 50)
+    d_old, d_new = device_ms(earlier_round, 50), device_ms(new_round, 50)
+    print(f"one hook round at S={C_TAKE}, E={E_TAKE}, R={R} (no host read): earlier "
+          f"sequence (2 take0, max, min, scatter_reduce, {N_COMPRESS} take0, compare, any) "
+          f"{d_old:.4f} ms on the device, {t_old:.4f} ms a round (CUDA events); "
+          f"hook_min + pointer_jump {d_new:.4f} ms on the device, {t_new:.4f} ms a round",
+          flush=True)
+    return results
 
 
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel equals its plain version on the card, at a
     small ragged shape and at the main-path shape, where both are timed."""
-    results = {"checkerboard_multi_sweep": check_checkerboard(dev)}
+    results = {"checkerboard_multi_sweep": check_checkerboard(dev), **check_labels(dev)}
     rng = np.random.default_rng(0)
     wrappers = {
         "parity_bits": (ops.parity_bits, ops.parity_bits_plain, 20, 3),
         "carry_decisions": (ops.carry_decisions, ops.carry_decisions_plain, 20, 2),
         "carry_decisions_heatbath": (ops.carry_decisions_heatbath,
                                      ops.carry_decisions_heatbath_plain, 20, 1),
-        "take0": (ops.take0, ops.take0_plain, 200, 50),
     }
-    ragged = kernel_inputs(rng, dev, K, 37, 5, 9, 7, 5)
-    full = kernel_inputs(rng, dev, K, M, R, N, C_TAKE, E_TAKE)
+    ragged = kernel_inputs(rng, dev, K, 37, 5, 9)
+    full = kernel_inputs(rng, dev, K, M, R, N)
     for name, (kernel, plain, reps, plain_reps) in wrappers.items():
         for args in (ragged[name], full[name]):
-            got = kernel(*args)
-            want = plain(*args)
+            got = as_tuple(kernel(*args))
+            want = as_tuple(plain(*args))
             torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
             for g, w in zip(got, want):
                 if not torch.equal(g, w):
                     raise AssertionError(f"{name}: kernel differs from its plain "
@@ -243,22 +471,16 @@ def check_kernels(dev) -> dict:
                   for g, w in zip(got, want))
         ms = cuda_ms(lambda: kernel(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), plain_reps)
-        library_ms = None
-        if name == "take0":
-            # torch.gather on the same table with the index widened beforehand.
-            idx64 = args[1].long()
-            library_ms = cuda_ms(lambda: torch.gather(args[0], 0, idx64), reps)
-        # Each input read once and each output written once; K2 and K4 do
-        # a few integer operations per byte, K3 one short serial chain per
-        # slot, so bytes set the bound (K3's chain is a latency limit that
-        # this bound does not see).
+        # Each input read once and each output written once; K2 does a few
+        # integer operations per byte, K3 one short serial chain per slot,
+        # so bytes set the bound (K3's chain is a latency limit that this
+        # bound does not see).
         res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               **bound(nbytes(*args, *got)), "library_ms": library_ms}
+               **bound(nbytes(*args, *got)), "library_ms": None}
         shapes = [tuple(a.shape) for a in args]
         print(f"{name}: equal to plain (max_abs_err {err}); kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']}), library {library_ms}; input shapes {shapes}",
-              flush=True)
+              f"({res['bound_by']}); input shapes {shapes}", flush=True)
         results[name] = res
     return results
 
@@ -327,17 +549,40 @@ def run_slice(dev, heatbath: bool = False, cutoff: int = 6500):
     return out, ns, g
 
 
+def check_grown_labels(g: QmcIsingGraph) -> None:
+    """Phase 5: the hook-and-compress labels of the grown 32x32 op string
+    (full label space) from K4 on the card equal those of the plain
+    versions, which a CPU tensor takes."""
+    t0 = time.perf_counter()
+    sg = segment_graph(g.sse.ops, g.model)
+    got = hook_compress_labels(sg.u, sg.v, sg.S).cpu()
+    want = hook_compress_labels(sg.u.cpu(), sg.v.cpu(), sg.S)
+    if not torch.equal(got, want):
+        raise AssertionError("K4's labels of the grown op string differ from the plain ones")
+    roots = (want == torch.arange(sg.S, dtype=torch.int32)[:, None]).sum(0).float()
+    print(f"labels of the grown op string (S={sg.S}, E={sg.u.shape[0]}, R={R}): K4 equal to "
+          f"the plain versions, {float(roots.mean()):.1f} roots a replica "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def profile_sweeps(g: QmcIsingGraph, label: str, nsweeps: int = 4) -> None:
     """Phase 5b: device time per sweep by kernel over ``nsweeps`` chunked
-    timesteps under ``torch.profiler``, the ten largest, and the device's
-    busy share of the wall time."""
+    timesteps under ``torch.profiler``, the ten largest, K4's, the device
+    events per sweep and the device's busy share of the wall time. Raises
+    if a ``scatter_reduce`` ran (the hook is K4's ``hook_min``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    def run(n):
+        g.sse, _, _ = multi_sweep(g.sse, 1.0, g.model, n, lambda: g.draws,
+                                  cluster_caps=g._cluster_caps, **g._diag_args())
+
+    # A first profiler session in a process runs slow; one sweep, discarded.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run(1)
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        g.sse, _, _ = multi_sweep(g.sse, 1.0, g.model, nsweeps, lambda: g.draws,
-                                  cluster_caps=g._cluster_caps, **g._diag_args())
+        run(nsweeps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device-side events only (kernels, copies, memsets): an operator's row
@@ -352,6 +597,14 @@ def profile_sweeps(g: QmcIsingGraph, label: str, nsweeps: int = 4) -> None:
           f"({100 * busy / wall_ms:.1f}% busy); largest, ms per sweep (calls):", flush=True)
     for name, ms, calls in rows[:10]:
         print(f"  {ms:.4f} ({calls:g})  {name[:90]}", flush=True)
+    k4 = [r for r in rows if any(k in r[0] for k in
+                                 ("take0_kernel", "hook_min_kernel", "pointer_jump_kernel"))]
+    print(f"  K4 kernels {sum(r[1] for r in k4):.4f} ms per sweep over "
+          f"{sum(r[2] for r in k4):g} launches; {sum(r[2] for r in rows):g} device events "
+          f"per sweep", flush=True)
+    scatter_min = [e.key for e in prof.key_averages() if "scatter_reduce" in e.key]
+    if scatter_min:
+        raise AssertionError(f"{label}: scatter_reduce ran in the sweep: {scatter_min}")
 
 
 def time_in_turns(g_met: QmcIsingGraph, g_hb: QmcIsingGraph, chunk: int = 16) -> None:
@@ -527,7 +780,8 @@ def main() -> None:
           f"{_build.library_path().name}")
     log = _build.library_path().with_suffix(".log")
     if log.exists():
-        print("\n".join(l for l in log.read_text().splitlines() if "registers" in l))
+        print("\n".join(l for l in log.read_text().splitlines()
+                        if "registers" in l or "Compiling entry" in l))
 
     phase("3. kernels against their plain versions")
     kernel_results = check_kernels(dev)
@@ -541,10 +795,11 @@ def main() -> None:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(f"kernel launches in the SSE main path: {counts}", flush=True)
-    sse_kernels = ("parity_bits", "carry_decisions", "take0")
+    sse_kernels = ("parity_bits", "carry_decisions", *SSE_K4)
     if min(counts[k] for k in sse_kernels) <= 0:
         raise AssertionError(f"a kernel of the SSE path was not launched: {counts}")
     launches = {k: counts[k] for k in sse_kernels}
+    check_grown_labels(g_met)
 
     phase("5b. SSE heat-bath path: 32x32 benchmark lattice")
     ops.reset_launch_counts()
@@ -552,7 +807,7 @@ def main() -> None:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(f"kernel launches in the SSE heat-bath path: {counts}", flush=True)
-    hb_kernels = ("parity_bits", "carry_decisions_heatbath", "take0")
+    hb_kernels = ("parity_bits", "carry_decisions_heatbath", *SSE_K4)
     if min(counts[k] for k in hb_kernels) <= 0 or counts["carry_decisions"] != 0:
         raise AssertionError(f"the heat-bath path did not run through K2, K3-hb and K4 "
                              f"alone: {counts}")

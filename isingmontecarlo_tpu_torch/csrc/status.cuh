@@ -1,0 +1,7 @@
+// Status codes of the kernel library. An entry point returns 0, a
+// cudaError_t, or one of the codes below, which ising_error_string names.
+#pragma once
+
+// K1: cudaOccupancyMaxActiveClusters found no SM group that can hold one
+// thread-block cluster of the requested size; nothing was launched.
+constexpr int kStatusClusterUnschedulable = 100001;

@@ -1,7 +1,8 @@
-"""Hand-written CUDA kernels for Hopper (``sm_90a``), one per TPU kernel of
-the classical checkerboard path and the SSE timestep, each beside its plain
-PyTorch version. The library builds from ``csrc/`` at first use (see
-:mod:`._build`)."""
+"""Hand-written CUDA kernels for Hopper (``sm_90a``) for the TPU kernels of
+the classical checkerboard path and the SSE timestep (K4's gather also
+takes the hook-and-compress steps around it, as three entry points), each
+beside its plain PyTorch version. The library builds from ``csrc/`` at
+first use (see :mod:`._build`)."""
 
 from isingmontecarlo_tpu_torch.ops.checkerboard import (
     checkerboard_multi_sweep,
@@ -17,11 +18,18 @@ from isingmontecarlo_tpu_torch.ops.parity_kernel import (
     parity_bits,
     parity_bits_plain,
 )
-from isingmontecarlo_tpu_torch.ops.take_kernel import take0, take0_plain
+from isingmontecarlo_tpu_torch.ops.take_kernel import (
+    hook_min,
+    hook_min_plain,
+    pointer_jump,
+    pointer_jump_plain,
+    take0,
+    take0_plain,
+)
 
 # The wrappers whose ``launches`` count the kernel launches of a run.
 KERNELS = (checkerboard_multi_sweep, parity_bits, carry_decisions,
-           carry_decisions_heatbath, take0)
+           carry_decisions_heatbath, take0, hook_min, pointer_jump)
 
 
 def reset_launch_counts() -> None:
@@ -41,9 +49,13 @@ __all__ = [
     "carry_decisions_plain",
     "checkerboard_multi_sweep",
     "checkerboard_multi_sweep_plain",
+    "hook_min",
+    "hook_min_plain",
     "launch_counts",
     "parity_bits",
     "parity_bits_plain",
+    "pointer_jump",
+    "pointer_jump_plain",
     "reset_launch_counts",
     "take0",
     "take0_plain",

@@ -36,10 +36,15 @@ NVCC_FLAGS = (
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
-    # in, out, table, seed word 0, seed word 1, R, L, nsweeps, stream
-    "ising_checkerboard": (_P, _P, _P, _U, _U, _I, _I, _I, _P),
-    # table, idx, out, C, E, R, stream
-    "ising_take0": (_P, _P, _P, _I, _I, _I, _P),
+    # in, out, table, seed word 0, seed word 1, R, L, CTAs per replica,
+    # nsweeps, stream
+    "ising_checkerboard": (_P, _P, _P, _U, _U, _I, _I, _I, _I, _P),
+    # table, idx, out, idx2, out2 (both null for one grid), C, E, E2, R, stream
+    "ising_take0": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # P, Pn, u, v, first, S, E, R, stream
+    "ising_hook_min": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # Pn, P_start, out, flag, tag, hops, S, R, stream
+    "ising_pointer_jump": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # state, v_idx, tog, vq, seg (scratch), pb, sb, K, M, R, N, seg_len, stream
     "ising_parity_bits": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # n0, u0, idp, dgp, num_ins, num_rem, insert, remove, M, R, stream

@@ -2,8 +2,11 @@
 
 Replaces ``isingmontecarlo_tpu/ops/checkerboard.py::checkerboard_multi_sweep``
 (a Pallas kernel that holds one replica's field in VMEM for all sweeps).
-The CUDA kernel is ``csrc/checkerboard.cu``: one block per replica with both
-colour planes in shared memory; see that file for what bounds it on the card.
+The CUDA kernel is ``csrc/checkerboard.cu``: a thread-block cluster of
+``c`` CTAs per replica, each holding a band of ``L/c`` rows of both colour
+planes in its shared memory and reading the rows beside its band from its
+neighbours' (:func:`cluster_size` picks ``c``); see that file for what
+bounds it on the card.
 
 Semantics (``src/classical/graph.rs:339-347, 430-447``): energy
 ``E = J sum_<ij> s_i s_j - h sum_i s_i``; each sweep updates the even plane
@@ -37,9 +40,13 @@ PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 
-# Both int8 planes of a replica sit in one block's shared memory: L * L bytes
-# of the 232,448 an H100 block can have, so L <= 482.
+# A CTA holds a band of L/c rows of both int8 planes, L * L / c bytes, and
+# a 40-byte threshold table in the 232,448 bytes of shared memory an H100
+# block can have; c is at most 8 (the portable cluster size) and divides L,
+# so L <= 1360.
 MAX_SHARED_BYTES = 232_448
+TABLE_BYTES = 40
+CLUSTER_SIZES = (1, 2, 4, 8)
 
 
 def split_planes(x: torch.Tensor) -> torch.Tensor:
@@ -129,13 +136,20 @@ def plane_uniforms(seed: int, R: int, L: int, sweep: int, color: int,
 def accept_table(beta, j, h, device) -> torch.Tensor:
     """``f32[2, 5]``: ``p[s, c] = exp(-beta * max(dE, 0))`` for spin index
     ``s`` (0 down, 1 up) and ``c`` up neighbours, with the Pallas kernel's
-    ``dE = s * (2h - 2J * nsum)``, ``nsum = 2c - 4``, all in float32."""
+    ``dE = s * (2h - 2J * nsum)``, ``nsum = 2c - 4``, all in float32.
+
+    Computed on the host and, for a CUDA ``device``, copied from pinned
+    memory without waiting: a copy from pageable memory would wait for the
+    stream, and so for the kernel launched before it."""
     f32 = torch.float32
-    beta, j, h = (torch.tensor(float(x), dtype=f32, device=device) for x in (beta, j, h))
-    sig = torch.tensor([-1.0, 1.0], dtype=f32, device=device)[:, None]
-    nsum = torch.arange(-4.0, 5.0, 2.0, dtype=f32, device=device)[None]
+    beta, j, h = (torch.tensor(float(x), dtype=f32) for x in (beta, j, h))
+    sig = torch.tensor([-1.0, 1.0], dtype=f32)[:, None]
+    nsum = torch.arange(-4.0, 5.0, 2.0, dtype=f32)[None]
     de = sig * (2.0 * h - 2.0 * j * nsum)
-    return torch.exp(-beta * torch.clamp(de, min=0.0))
+    p = torch.exp(-beta * torch.clamp(de, min=0.0))
+    if torch.device(device).type == "cpu":
+        return p
+    return p.pin_memory().to(device, non_blocking=True)
 
 
 def half_sweep(eo: torch.Tensor, color: int, u: torch.Tensor,
@@ -174,25 +188,57 @@ def checkerboard_multi_sweep_plain(spins, seed: int, beta, j, h,
     return merge_colors(eo).to(torch.bool)
 
 
+def cluster_sizes(L: int) -> list[int]:
+    """The CTAs per replica that can hold an L x L field: ``c`` in
+    :data:`CLUSTER_SIZES` that divides L and whose band of ``L * L / c``
+    bytes fits a CTA's shared memory. Raises when there is none."""
+    sizes = [c for c in CLUSTER_SIZES
+             if L % c == 0 and L * L // c + TABLE_BYTES <= MAX_SHARED_BYTES]
+    if not sizes:
+        raise ValueError(
+            f"L={L}: no cluster of c in {CLUSTER_SIZES} CTAs with L % c == 0 holds "
+            f"a band of L*L/c bytes in a CTA's {MAX_SHARED_BYTES} bytes of shared "
+            f"memory (the largest L is 1360, at c=8)")
+    return sizes
+
+
+def cluster_size(R: int, L: int, n_sms: int) -> int:
+    """K1's CTAs per replica for ``R`` replicas of an L x L field on a card
+    with ``n_sms`` SMs: the largest of :func:`cluster_sizes` whose ``R * c``
+    CTAs fit one wave of one CTA per SM, else the smallest. A 1024-thread
+    CTA's registers leave no room for a second on its SM, and every CTA
+    more per replica adds remote rows and cluster barriers, so past one
+    wave a larger c only costs (on an H100 at L=256, 100 sweeps: R=64 ran
+    0.82 ms at c=2 and 1.46 ms at c=4; R=256 2.72 ms at c=1 and 3.26 ms at
+    c=2; ``chip_smoke.py`` phase 3)."""
+    sizes = cluster_sizes(L)
+    return max((c for c in sizes if R * c <= n_sms), default=sizes[0])
+
+
 def checkerboard_multi_sweep(spins: torch.Tensor, seed: int, beta, j, h,
-                             nsweeps: int) -> torch.Tensor:
+                             nsweeps: int, cluster: int | None = None) -> torch.Tensor:
     """``nsweeps`` checkerboard Metropolis sweeps of ``spins bool[R, L, L]``
     (even L) with uniform ``j`` and ``h``; returns the new ``bool[R, L, L]``.
 
     A CPU tensor takes :func:`checkerboard_multi_sweep_plain`; a CUDA tensor
     launches the kernel (counted in ``checkerboard_multi_sweep.launches``)
-    or raises, also when ``L * L`` bytes exceed a block's shared memory."""
+    with ``cluster`` CTAs per replica (default :func:`cluster_size` for the
+    card), or raises: also when no cluster size holds the field in shared
+    memory, or when the card cannot schedule the cluster."""
     R, L = _check_lattice(spins)
     _build.check(spins, "spins", torch.bool, (R, L, L), spins.device)
     if not _build.use_kernel(spins.device):
         return checkerboard_multi_sweep_plain(spins, seed, beta, j, h, nsweeps)
-    if L * L > MAX_SHARED_BYTES:
-        raise ValueError(f"L={L}: both colour planes ({L * L} bytes) exceed a "
-                         f"block's {MAX_SHARED_BYTES} bytes of shared memory")
+    sizes = cluster_sizes(L)
+    if cluster is None:
+        n_sms = torch.cuda.get_device_properties(spins.device).multi_processor_count
+        cluster = cluster_size(R, L, n_sms)
+    elif cluster not in sizes:
+        raise ValueError(f"cluster={cluster}: L={L} takes a cluster size in {sizes}")
     out = torch.empty_like(spins)
     table = accept_table(beta, j, h, spins.device)
     k0, k1 = seed_words(seed)
-    _build.launch("ising_checkerboard", spins, out, table, k0, k1, R, L, nsweeps)
+    _build.launch("ising_checkerboard", spins, out, table, k0, k1, R, L, cluster, nsweeps)
     checkerboard_multi_sweep.launches += 1
     return out
 

@@ -11,8 +11,9 @@ the p=0 state is re-read from the first op on each variable.
 
 Each maximal worldline run between cluster-edge ops is one supernode
 (:func:`segment_graph`); components of the contracted graph are labelled by
-hook-and-compress union-find (:func:`hook_compress_labels`). Per-replica
-gathers on label tables go through kernel K4 (``ops.take0``).
+hook-and-compress union-find (:func:`hook_compress_labels`). Kernel K4 does
+the hooks (``ops.hook_min``), the pointer jumps (``ops.pointer_jump``) and
+the per-replica gathers on label tables (``ops.take0``).
 
 Like the JAX package, label propagation yields one cluster per connected
 component even when no constant op exists, where the reference treats the
@@ -26,7 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from isingmontecarlo_tpu_torch.ops.take_kernel import take0
+from isingmontecarlo_tpu_torch.ops.take_kernel import hook_min, pointer_jump, take0
 from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import (
     SORT_BIG, OpString, op_vars, sorted_legs, substate_index,
@@ -131,31 +132,27 @@ def segment_graph(ops: OpString, model: BondModel) -> SegGraph:
 def hook_compress_labels(u: torch.Tensor, v: torch.Tensor, S: int) -> torch.Tensor:
     """Connected components over the segment edge list ``(u, v) i32[E, R]``
     by hook-and-compress: each round hooks ``min(P[u], P[v])`` onto the row
-    of the larger endpoint label (``P[max] <- min``), then pointer-jumps
-    ``P <- P[P]`` :data:`N_COMPRESS` times, until a round changes nothing.
-    Returns ``P i32[S, R]``: every segment of a component gets the
-    component's minimum id (``P[x] <= x`` and labels never leave the
-    component, so the minimum is its own root).
+    of the larger endpoint label (``P[max] <- min``, :func:`ops.hook_min`),
+    then pointer-jumps ``P <- P[P]`` :data:`N_COMPRESS` times in one launch
+    (:func:`ops.pointer_jump`), until a round changes nothing. Returns
+    ``P i32[S, R]``: every segment of a component gets the component's
+    minimum id (``P[x] <= x`` and labels never leave the component, so the
+    minimum is its own root).
 
-    The fixpoint test reads one flag to the host per round."""
+    The fixpoint test reads one flag to the host per round: the jump of
+    round ``k`` sets the shared flag to ``k`` where the round changed a
+    label, so the flag is zeroed once, not every round."""
     R = u.shape[1]
-    P0 = torch.arange(S, dtype=torch.int32, device=u.device)[:, None].repeat(1, R)
-
-    def hook(P, pu, pv):
-        Pn = P.scatter_reduce(0, torch.maximum(pu, pv).long(),
-                              torch.minimum(pu, pv), reduce="amin")
-        for _ in range(N_COMPRESS):
-            Pn = take0(Pn, Pn)
-        return Pn
-
-    # Round 1 from the identity: the endpoint labels are (u, v) themselves.
-    P = hook(P0, u, v)
-    changed = bool((P != P0).any())
-    while changed:
-        Pn = hook(P, take0(P, u), take0(P, v))
-        changed = bool((Pn != P).any())
-        P = Pn
-    return P
+    P = torch.arange(S, dtype=torch.int32, device=u.device)[:, None].repeat(1, R)
+    flag = torch.zeros(1, dtype=torch.int32, device=u.device)
+    rounds = 0
+    while True:
+        rounds += 1
+        # Round 1 from the identity: the endpoint labels are (u, v) themselves.
+        Pn = hook_min(P, u, v, first=rounds == 1)
+        P, _ = pointer_jump(Pn, P, N_COMPRESS, flag, rounds)
+        if int(flag) != rounds:
+            return P
 
 
 def compact_dispatch(sg: SegGraph, consume: Callable,
@@ -246,14 +243,13 @@ def cluster_update_impl(ops: OpString, state: torch.Tensor,
     w_flip = model.full_w[bl, (si ^ legmask).long(), (so ^ legmask).long()]
 
     def flip_decisions(W, s_in, s_out, SL):
-        lab_in = take0(W, s_in.contiguous())  # [M, R] component root id
-        lab_out = take0(W, s_out.contiguous())
+        # [M, R] component root ids of both sides, one launch
+        lab_in, lab_out = take0(W, s_in.contiguous(), s_out.contiguous())
         flip_prob, frozen = root_flip_prob(lab_in, lab_out, valid_op, w_cur,
                                            w_flip, SL, prob)
         flip_root = ((draw_uniform((SL, R)) < flip_prob) & ~frozen).to(torch.int32)
-        f_in = take0(flip_root, lab_in).bool() & valid_op
-        f_out = take0(flip_root, lab_out).bool() & valid_op
-        return f_in, f_out
+        f_in, f_out = take0(flip_root, lab_in, lab_out)
+        return f_in.bool() & valid_op, f_out.bool() & valid_op
 
     noop = None
     if label_cap is not None:

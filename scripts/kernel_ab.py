@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""Time kernels K1 and K4 and the 32x32 SSE sweep of one checkout of the
+PyTorch port on one CUDA GPU, for comparing two checkouts on one card.
+
+    python3 scripts/kernel_ab.py CHECKOUT LABEL
+
+imports ``isingmontecarlo_tpu_torch`` from the directory CHECKOUT (its
+kernels build there at first use) and prints lines of results and, last,
+one JSON object tagged LABEL. Run it in turns, for example parent, change,
+change, parent, in one session on one card: times move between cards and
+with the host's load. What it measures, each on the card:
+
+- K1 at L=256, 100 sweeps, J=-1, beta=0.4, R=64 and R=256, with the
+  checkout's own launch geometry: device ms per call (``torch.profiler``)
+  and ms per call from CUDA events (host included);
+- K4's ``take0`` on one [7000, 256] grid into an [8000, 256] table, device
+  ms, beside ``torch.gather``'s;
+- one hook-and-compress round on 8000 labels, 7000 edges, R=256, as the
+  checkout's ``hook_compress_labels`` runs it (without the host read),
+  device ms;
+- the SSE 32x32 Metropolis sweep (Gamma=1, beta=1, R=256, cluster update
+  every sweep): wall ms per sweep over 16 sweeps (host clock around work
+  that ends in a synchronize), and under the profiler the device ms per
+  sweep, the device events per sweep, and the label stage's device ms per
+  sweep: K4's kernels by name, and the kernels that PyTorch's operators
+  launched inside ``hook_compress_labels`` and inside the flip decisions'
+  gathers (the profiler ties a kernel to an enclosing range only when an
+  operator launched it, not a ctypes call, so the K4 kernels are counted
+  by name).
+
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+K4_KERNELS = ("take0_kernel", "hook_min_kernel", "pointer_jump_kernel")
+
+
+def device_ms(fn, reps: int, ranges: tuple[str, ...] = ()) -> tuple[float, dict, float, float]:
+    """Device ms per call over ``reps`` calls (after one warm-up), the
+    device ms per call of the operators' kernels inside each
+    ``record_function`` range named in ``ranges``, the device events per
+    call, and the device ms per call of K4's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # A range shows twice: as a host event, whose device time is that of the
+    # kernels launched inside it, and as a span on the device timeline
+    # (gaps included), which is left out.
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == cuda and e.key not in ranges]
+    per_range = {e.key: e.device_time_total / 1e3 / reps for e in events
+                 if e.key in ranges and e.device_type == cpu}
+    k4 = sum(e.self_device_time_total for e in dev if any(k in e.key for k in K4_KERNELS))
+    return (sum(e.self_device_time_total for e in dev) / 1e3 / reps, per_range,
+            sum(e.count for e in dev) / reps, k4 / 1e3 / reps)
+
+
+def events_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main() -> None:
+    checkout, label = sys.argv[1], sys.argv[2]
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA GPU")
+    sys.path.insert(0, checkout)
+    from isingmontecarlo_tpu_torch import lattice, ops
+    from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, multi_sweep
+    from isingmontecarlo_tpu_torch.sse import cluster as cl
+
+    if not cl.__file__.startswith(checkout.rstrip("/")):
+        raise SystemExit(f"kernel_ab: imported {cl.__file__}, not from {checkout}")
+    dev = torch.device("cuda", 0)
+    out = {"label": label, "checkout": checkout}
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    for R in (64, 256):
+        sp = torch.rand((R, 256, 256), generator=gen, device=dev) < 0.5
+
+        def k1():
+            return ops.checkerboard_multi_sweep(sp, 1, 0.4, -1.0, 0.0, 100)
+
+        out[f"k1_R{R}_device_ms"] = device_ms(k1, 10)[0]
+        out[f"k1_R{R}_call_ms"] = events_ms(k1, 10)
+
+    rng = np.random.default_rng(0)
+    S, E, R = 8000, 7000, 256
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    table = t(rng.integers(0, S, size=(S, R)))
+    idx = t(rng.integers(0, S, size=(E, R)))
+    idx64 = idx.long()
+    out["take0_one_grid_device_ms"] = device_ms(lambda: ops.take0(table, idx), 100)[0]
+    out["gather_one_grid_device_ms"] = device_ms(lambda: torch.gather(table, 0, idx64), 100)[0]
+
+    # One round's body as the checkout's hook_compress_labels runs it, on
+    # valid labels (P[x] <= x), without the host read.
+    u, v = t(rng.integers(0, S - 1, size=(E, R))), t(rng.integers(0, S - 1, size=(E, R)))
+    P1 = cl.hook_compress_labels(u, v, S)
+    if hasattr(ops, "hook_min"):
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def round_():
+            return ops.pointer_jump(ops.hook_min(P1, u, v), P1, cl.N_COMPRESS, flag, 1)
+    else:
+        def round_():
+            pu, pv = ops.take0(P1, u), ops.take0(P1, v)
+            Pn = P1.scatter_reduce(0, torch.maximum(pu, pv).long(), torch.minimum(pu, pv),
+                                   reduce="amin")
+            for _ in range(cl.N_COMPRESS):
+                Pn = ops.take0(Pn, Pn)
+            return Pn, (Pn != P1).any()
+    out["hook_round_device_ms"] = device_ms(round_, 50)[0]
+
+    g = QmcIsingGraph(lattice.bench_two_d_periodic(32), 1.0, cutoff=6500, replicas=256,
+                      seed=7, device=dev)
+    g.timesteps(48, 1.0)
+
+    def sweeps(n):
+        g.sse, ns, _ = multi_sweep(g.sse, 1.0, g.model, n, lambda: g.draws,
+                                   cluster_caps=g._cluster_caps, **g._diag_args())
+        return ns
+
+    sweeps(16).cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweeps(16).cpu()
+    out["sse_wall_ms_per_sweep"] = 1e3 * (time.perf_counter() - t0) / 16
+
+    # Label the stages: the hook, and the flip decisions' gathers (every
+    # take0 outside the hook).
+    from torch.profiler import record_function
+
+    hook, take0, in_hook = cl.hook_compress_labels, cl.take0, [False]
+
+    def hook_ranged(*a, **k):
+        in_hook[0] = True
+        try:
+            with record_function("labels: hook_compress_labels"):
+                return hook(*a, **k)
+        finally:
+            in_hook[0] = False
+
+    def take0_ranged(*a, **k):
+        if in_hook[0]:
+            return take0(*a, **k)
+        with record_function("labels: flip gathers"):
+            return take0(*a, **k)
+
+    cl.hook_compress_labels, cl.take0 = hook_ranged, take0_ranged
+    names = ("labels: hook_compress_labels", "labels: flip gathers")
+    total, ranges, n_events, k4 = device_ms(lambda: sweeps(1), 4, names)
+    cl.hook_compress_labels, cl.take0 = hook, take0
+    out["sse_device_ms_per_sweep"] = total
+    out["sse_device_events_per_sweep"] = n_events
+    out["sse_k4_kernels_device_ms_per_sweep"] = k4
+    out["sse_hook_operators_device_ms_per_sweep"] = ranges.get(names[0], 0.0)
+    out["sse_flip_gathers_operators_device_ms_per_sweep"] = ranges.get(names[1], 0.0)
+    out["sse_label_stage_device_ms_per_sweep"] = k4 + sum(ranges.values())
+    # The sweep again without the ranges, as a check that they move nothing.
+    total2 = device_ms(lambda: sweeps(1), 4)[0]
+    out["sse_device_ms_per_sweep_without_ranges"] = total2
+    out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"], capture_output=True,
+                                 text=True).stdout.strip()
+    for k, val in out.items():
+        print(f"{k}: {val}")
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -135,28 +135,62 @@ def test_odd_l_raises():
         LatticeIsing(5, replicas=2, device="cpu")
 
 
-def test_l_above_shared_memory_raises_before_launch(monkeypatch):
-    """The kernel path refuses L*L > 232,448 bytes before it launches
-    anything (here with the dispatch forced to the kernel path)."""
+@pytest.mark.parametrize("L", [1362, 1368])
+def test_l_above_shared_memory_raises_before_launch(monkeypatch, L):
+    """The kernel path refuses an L for which no cluster of c <= 8 CTAs with
+    L % c == 0 holds a band of L*L/c bytes (1362: 1362 % 8 != 0; 1368: one
+    eighth is 233,928 bytes) before it launches anything or asks for the
+    card (here with the dispatch forced to the kernel path)."""
     def no_launch(*args):
         raise AssertionError("launched")
 
     monkeypatch.setattr(_build, "use_kernel", lambda device: True)
     monkeypatch.setattr(_build, "launch", no_launch)
     with pytest.raises(ValueError, match="shared memory"):
-        ops.checkerboard_multi_sweep(torch.zeros((1, 484, 484), dtype=torch.bool),
+        ops.checkerboard_multi_sweep(torch.zeros((1, L, L), dtype=torch.bool),
                                      0, 0.4, -1.0, 0.0, 1)
+
+
+@pytest.mark.parametrize("R,L,n_sms,want", [
+    (64, 256, 132, 2),   # 128 CTAs fit one wave; 256 would take two
+    (256, 256, 132, 1),  # two waves whatever c: the fewest CTAs
+    (2, 1024, 132, 8),   # a quarter of 1024^2 exceeds a CTA's shared memory
+    (64, 6, 132, 2),     # 6 % 4 != 0: the largest c that divides L
+    (1, 1360, 132, 8),   # the largest L
+    (16, 64, 132, 8),
+    (8, 64, 16, 2),
+])
+def test_cluster_size_rule(R, L, n_sms, want):
+    assert cb.cluster_size(R, L, n_sms) == want
+    assert want in cb.cluster_sizes(L)
+
+
+def test_cluster_sizes_divide_l_and_fit_shared_memory(monkeypatch):
+    assert cb.cluster_sizes(256) == [1, 2, 4, 8]
+    assert cb.cluster_sizes(482) == [1, 2]
+    assert cb.cluster_sizes(484) == [2, 4]
+    assert cb.cluster_sizes(1360) == [8]
+    # A cluster size that does not divide L is refused before any launch.
+    monkeypatch.setattr(_build, "use_kernel", lambda device: True)
+    with pytest.raises(ValueError, match="cluster size"):
+        ops.checkerboard_multi_sweep(torch.zeros((1, 8, 8), dtype=torch.bool),
+                                     0, 0.4, -1.0, 0.0, 1, cluster=3)
 
 
 @pytest.mark.cuda
 def test_cuda_kernel_equals_plain_and_refuses_large_l():
+    """K1 against its plain version at every cluster size of L=8 and L=6
+    (16-byte and byte paths), at R=64, L=256, and at L=1024 (c=8 only)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU and nvcc")
-    sp = torch.rand((3, 6, 6), device="cuda") < 0.5
-    got = ops.checkerboard_multi_sweep(sp, 3, 0.4, -1.0, 0.3, 5)
-    assert torch.equal(got, ops.checkerboard_multi_sweep_plain(sp, 3, 0.4, -1.0, 0.3, 5))
+    for R, L, nsweeps in ((3, 8, 5), (3, 6, 5), (64, 256, 4), (2, 1024, 2)):
+        sp = torch.rand((R, L, L), device="cuda") < 0.5
+        want = ops.checkerboard_multi_sweep_plain(sp, 3, 0.4, -1.0, 0.3, nsweeps)
+        for c in cb.cluster_sizes(L):
+            got = ops.checkerboard_multi_sweep(sp, 3, 0.4, -1.0, 0.3, nsweeps, cluster=c)
+            assert torch.equal(got, want), (R, L, c)
     with pytest.raises(ValueError, match="shared memory"):
-        ops.checkerboard_multi_sweep(torch.zeros((1, 484, 484), dtype=torch.bool,
+        ops.checkerboard_multi_sweep(torch.zeros((1, 1368, 1368), dtype=torch.bool,
                                                  device="cuda"), 0, 0.4, -1.0, 0.0, 1)
 
 

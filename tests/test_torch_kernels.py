@@ -126,4 +126,4 @@ def test_wrappers_check_inputs_and_devices():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"checkerboard_multi_sweep": 0, "parity_bits": 0,
                                    "carry_decisions": 0, "carry_decisions_heatbath": 0,
-                                   "take0": 0}
+                                   "take0": 0, "hook_min": 0, "pointer_jump": 0}
