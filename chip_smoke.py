@@ -14,8 +14,11 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    size, and 1024^2 at R=2): equal (``torch.equal``), with both times at
    the latter, and each kernel's bound (bytes or operations at the card's
    published peaks; for K1 also the instruction-issue bound of its inner
-   loop's SASS). K4's three entry points (``take0`` on one and on two
-   grids, ``hook_min``, ``pointer_jump``) beside ``torch.gather``, and one
+   loop's SASS, for K3 and K3-hb the bound of their carry chain in the
+   SASS). K3 and K3-hb also at ragged shapes and on tie-heavy inputs, whose
+   slots sit on the comparisons' edge, timed on those too. K4's three
+   entry points (``take0`` on one and on two grids, ``hook_min``,
+   ``pointer_jump``) beside ``torch.gather``, and one
    hook round as the port ran it before (gathers, ``scatter_reduce``,
    single jumps) beside the new one; K1's time at each cluster size at
    R=64 and R=256.
@@ -30,9 +33,11 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    and K3 (Metropolis) not. Its mean op count must agree with phase 5's
    (both chains sample one distribution) within 5 combined standard errors
    and 0.5%, and an 8-site heat-bath chain must match exact
-   diagonalization. Then both 32x32 paths are timed in turns, and run 4
-   more sweeps each under ``torch.profiler``: device time by kernel and
-   the busy share; no ``scatter_reduce`` may run.
+   diagonalization. K3 and K3-hb equal their plain versions on the
+   arguments of one call each recorded from the grown chains, and are timed
+   on them. Then both 32x32 paths are timed in turns, and run 4 more sweeps
+   each under ``torch.profiler``: device time by kernel (K3's and K3-hb's
+   by name) and the busy share; no ``scatter_reduce`` may run.
 6. The classical main path: ``LatticeIsing(256, j=-1, replicas=64)``
    against Onsager's energy and Yang's magnetization, its marginal
    spin-flip attempts/s, then the README's ``GraphState`` quickstart on the
@@ -47,6 +52,7 @@ network and imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -59,7 +65,9 @@ from isingmontecarlo_tpu_torch.analysis import effective_sample_size
 from isingmontecarlo_tpu_torch.classical import metropolis, worm
 from isingmontecarlo_tpu_torch.ops import _build
 from isingmontecarlo_tpu_torch.ops import checkerboard as cb
+from isingmontecarlo_tpu_torch.ops.diag_carry import tie_heavy_carry_inputs
 from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, multi_sweep
+from isingmontecarlo_tpu_torch.sse import diagonal as sse_diagonal
 from isingmontecarlo_tpu_torch.sse.cluster import (
     N_COMPRESS, hook_compress_labels, segment_graph,
 )
@@ -213,13 +221,107 @@ def bound(bytes_moved: float, operations: float = 0.0) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# Hopper's dependent-issue latency of the FP32 and integer ALU pipes, in
+# clocks: the cost of each instruction on K3's carry chain.
+ALU_LATENCY_CLOCKS = 4
+# The carry kernels' template arguments, which name them in the SASS and in
+# a profile.
+CARRY_CHAINS = {"carry_decisions": "Metropolis", "carry_decisions_heatbath": "HeatBath"}
+
+# An instruction, and the upper word of its encoding, whose bits 41-44 are
+# the stall count that the compiler scheduled after it.
+SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);"
+                     r"(?:\s*/\* 0x[0-9a-f]{16} \*/\s*/\* (0x[0-9a-f]{16}) \*/)?")
+SASS_REG = re.compile(r"(?<![\w.])[-!|]?(U?R\d+|U?P\d)\b")
+# Opcodes with no register result, and those with two predicate results.
+SASS_NO_DEST = ("ST", "RED", "ATOM", "BRA", "BAR", "SYNCS", "EXIT", "NOP", "WARPSYNC", "RET",
+                "CALL", "LDGSTS", "MEMBAR", "DEPBAR", "BSYNC", "BSSY", "YIELD", "UTMALDG")
+SASS_TWO_DEST = ("FSETP", "ISETP", "DSETP", "HSETP2", "PSETP", "PLOP3")
+
+
+def carry_chain(sass: str, chain: str) -> tuple[int, int, int, int] | None:
+    """The carry chain of K3 or K3-hb (``chain`` names the kernel's template
+    argument) in a ``cuobjdump -sass`` listing: in the straight-line block
+    with the most byte stores to shared memory (the unrolled walk of a full
+    tile, one code byte a slot), the longest run of dependent instructions
+    from the registers that the block carries from one trip to the next
+    (read before written) back to them. Returns (slots in the block, that
+    run's length, the block's instructions, the clocks its compiled
+    schedule stalls in all), or None."""
+    func = re.search(r"Function : (\S*" + chain + r"\S*)\n(.*?)(?=\n\s*Function :|\Z)",
+                     sass, re.S)
+    if func is None:
+        return None
+    blocks, cur = [], []
+    for m in SASS_OP.finditer(func.group(2)):
+        op, args = m.group(3), [a for a in m.group(4).split(",") if a.strip()]
+        nd = 0 if op.startswith(SASS_NO_DEST) else 2 if op.startswith(SASS_TWO_DEST) else 1
+        dests = [r.group(1) for a in args[:nd] if (r := SASS_REG.search(a))]
+        srcs = [r for a in args[nd:] for r in SASS_REG.findall(a)]
+        if m.group(2):  # a guarded instruction also reads its guard and old result
+            srcs += [m.group(2).strip().lstrip("@!")] + dests
+        stall = int(m.group(5), 16) >> 41 & 0xF if m.group(5) else 0
+        cur.append((op, dests, srcs, stall))
+        if op.startswith(("BRA", "EXIT", "SYNCS.PHASECHK")):
+            blocks.append(cur)
+            cur = []
+    block = max(blocks + [cur], key=lambda b: sum(i[0].startswith("STS.U8") for i in b))
+    slots = sum(i[0].startswith("STS.U8") for i in block)
+    written = {d for _, ds, _, _ in block for d in ds}
+    seen, carried = set(), set()
+    for _, ds, ss, _ in block:
+        carried |= {r for r in ss if r in written and r not in seen}
+        seen |= set(ds)
+    depth = dict.fromkeys(carried, 0)
+    for _, ds, ss, _ in block:
+        on_chain = [depth[r] for r in ss if r in depth]
+        for d in ds:
+            if on_chain:
+                depth[d] = max(on_chain) + 1
+            else:
+                depth.pop(d, None)
+    ends = [depth[r] for r in carried if r in depth]
+    stalls = sum(i[3] for i in block)
+    return (slots, max(ends), len(block), stalls) if slots and ends else None
+
+
+def carry_chain_bounds(M: int) -> dict:
+    """Each carry kernel's chain bound, printed: M slots times its dependent
+    instructions a slot (:func:`carry_chain` of ``cuobjdump -sass`` of the
+    built library) times ALU_LATENCY_CLOCKS, at the card's maximum SM clock
+    (nvidia-smi); or why it was not measured. Returns {name: ms}."""
+    from pathlib import Path
+
+    try:
+        tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+        sass = run([str(tool), "-sass", str(_build.library_path())])
+    except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+        print(f"carry chain bounds: not measured ({e})", flush=True)
+        return {}
+    f_sm = 1e6 * float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"]))
+    out = {}
+    for name, chain in CARRY_CHAINS.items():
+        found = carry_chain(sass, chain)
+        if found is None:
+            print(f"{name} chain bound: not measured (no carry walk found in the listing)",
+                  flush=True)
+            continue
+        slots, length, issued, stalls = found
+        out[name] = 1e3 * M * length / slots * ALU_LATENCY_CLOCKS / f_sm
+        print(f"{name} chain bound: {length} dependent instructions over the {slots} slots of "
+              f"a tile ({length / slots:.3f} a slot), x {ALU_LATENCY_CLOCKS} clocks at "
+              f"{f_sm / 1e6:.0f} MHz, M={M}: {out[name]:.4f} ms; the walk issues {issued} "
+              f"instructions a tile ({issued / slots:.2f} a slot), which its compiled "
+              f"schedule spreads over {stalls / slots:.2f} clocks a slot", flush=True)
+    return out
+
+
 def inner_loop_instructions(sass: str) -> list[str] | None:
     """The opcodes of K1's inner loop in a ``cuobjdump -sass`` listing: in
     the 16-byte kernel (``checkerboard_kernel<true>``), the shortest span
     from a backward branch's target to the branch that holds Philox's 20
     multiplies (one 4-site group per trip: the loop is not unrolled)."""
-    import re
-
     func = re.search(r"Function : (\S*checkerboard_kernelILb1E\S*)\n(.*?)(?=\n\s*Function :|\Z)",
                      sass, re.S)
     if func is None:
@@ -445,16 +547,104 @@ def check_labels(dev) -> dict:
     return results
 
 
-def check_kernels(dev) -> dict:
+CARRY = {"carry_decisions": (ops.carry_decisions, ops.carry_decisions_plain, False),
+         "carry_decisions_heatbath": (ops.carry_decisions_heatbath,
+                                      ops.carry_decisions_heatbath_plain, True)}
+
+
+def carry_equal(name: str, args, label: str) -> None:
+    kernel, plain, _ = CARRY[name]
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: kernel differs from its plain version on the {label} "
+                             f"inputs at {tuple(args[1].shape)}")
+
+
+def carry_time(name: str, args, label: str, bounds: dict) -> float:
+    """The kernel's device ms on ``args`` (after :func:`carry_equal`),
+    printed beside its chain and byte bounds."""
+    kernel = CARRY[name][0]
+    ms = device_ms(lambda: kernel(*args), 50)
+    call_ms = cuda_ms(lambda: kernel(*args), 50)
+    got = kernel(*args)
+    print(f"{name} on the {label} inputs {tuple(args[1].shape)}: equal to plain; kernel "
+          f"{ms:.4f} ms on the device ({call_ms:.4f} ms a call, CUDA events); chain bound "
+          f"{bounds.get(name, float('nan')):.4f} ms, byte bound "
+          f"{bound(nbytes(*args, *got))['bound_ms']:.4f} ms", flush=True)
+    return ms
+
+
+def check_carry(dev, rng, full: dict, bounds: dict) -> dict:
+    """Phase 3 for K3 and K3-hb: equal to the plain versions at ragged
+    shapes (R not a multiple of 32 or 16, M not a multiple of the 64-slot
+    tile; random and tie-heavy inputs) and at the 32x32 shape on random and
+    tie-heavy inputs, each timed (device ms, profiler); the plain versions
+    timed on the random ones."""
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    results = {}
+    for name, (kernel, plain, hb) in CARRY.items():
+        for m, r in ((37, 5), (300, 48), (130, 16), (100, 37)):
+            carry_equal(name, kernel_inputs(rng, dev, K, m, r, N)[name], "random")
+            carry_equal(name, [t(a) for a in tie_heavy_carry_inputs(m, r, m + r, hb)],
+                        "tie-heavy")
+        print(f"{name} equal to plain at ragged shapes (M, R) in (37, 5), (300, 48), "
+              f"(130, 16), (100, 37), random and tie-heavy", flush=True)
+        args = full[name]
+        carry_equal(name, args, "random")
+        ms = carry_time(name, args, "random", bounds)
+        ties = [t(a) for a in tie_heavy_carry_inputs(M, R, 7, hb)]
+        carry_equal(name, ties, "tie-heavy")
+        carry_time(name, ties, "tie-heavy", bounds)
+        got, want = kernel(*args), plain(*args)
+        err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        results[name] = {"max_abs_err": err, "ms": ms,
+                         "plain_ms": cuda_ms(lambda: plain(*args), 1),
+                         **bound(nbytes(*args, *got)), "library_ms": None}
+    return results
+
+
+def check_recorded_carry(g_met: QmcIsingGraph, g_hb: QmcIsingGraph, bounds: dict) -> None:
+    """Phase 5b: K3 and K3-hb against their plain versions on the arguments
+    of one real call each, recorded from a sweep of the grown 32x32 chains,
+    and timed on them."""
+    recorded = {}
+
+    def recorder(name, fn):
+        def call(*args):
+            recorded.setdefault(name, [a.clone() for a in args])
+            return fn(*args)
+        return call
+
+    saved = {name: getattr(sse_diagonal, name) for name in CARRY}
+    try:
+        for name in CARRY:
+            setattr(sse_diagonal, name, recorder(name, saved[name]))
+        for g in (g_met, g_hb):
+            g.sse, _, _ = multi_sweep(g.sse, 1.0, g.model, 1, lambda: g.draws,
+                                      cluster_caps=g._cluster_caps, **g._diag_args())
+    finally:
+        for name in CARRY:
+            setattr(sse_diagonal, name, saved[name])
+    for name, args in recorded.items():
+        carry_equal(name, args, "recorded 32x32")
+        carry_time(name, args, "recorded 32x32", bounds)
+    if set(recorded) != set(CARRY):
+        raise AssertionError(f"no call recorded for {set(CARRY) - set(recorded)}")
+
+
+def check_kernels(dev) -> tuple[dict, dict]:
     """Phase 3: every kernel equals its plain version on the card, at a
-    small ragged shape and at the main-path shape, where both are timed."""
+    small ragged shape and at the main-path shape, where both are timed.
+    Returns the per-kernel results and K3's and K3-hb's chain bounds."""
     results = {"checkerboard_multi_sweep": check_checkerboard(dev), **check_labels(dev)}
     rng = np.random.default_rng(0)
     wrappers = {
         "parity_bits": (ops.parity_bits, ops.parity_bits_plain, 20, 3),
-        "carry_decisions": (ops.carry_decisions, ops.carry_decisions_plain, 20, 2),
-        "carry_decisions_heatbath": (ops.carry_decisions_heatbath,
-                                     ops.carry_decisions_heatbath_plain, 20, 1),
     }
     ragged = kernel_inputs(rng, dev, K, 37, 5, 9)
     full = kernel_inputs(rng, dev, K, M, R, N)
@@ -472,9 +662,7 @@ def check_kernels(dev) -> dict:
         ms = cuda_ms(lambda: kernel(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), plain_reps)
         # Each input read once and each output written once; K2 does a few
-        # integer operations per byte, K3 one short serial chain per slot,
-        # so bytes set the bound (K3's chain is a latency limit that this
-        # bound does not see).
+        # integer operations per byte, so bytes set the bound.
         res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                **bound(nbytes(*args, *got)), "library_ms": None}
         shapes = [tuple(a.shape) for a in args]
@@ -482,7 +670,8 @@ def check_kernels(dev) -> dict:
               f"plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
               f"({res['bound_by']}); input shapes {shapes}", flush=True)
         results[name] = res
-    return results
+    carry_bounds = carry_chain_bounds(M)
+    return {**results, **check_carry(dev, rng, full, carry_bounds)}, carry_bounds
 
 
 def check_physics(dev, heatbath: bool = False) -> None:
@@ -597,6 +786,11 @@ def profile_sweeps(g: QmcIsingGraph, label: str, nsweeps: int = 4) -> None:
           f"({100 * busy / wall_ms:.1f}% busy); largest, ms per sweep (calls):", flush=True)
     for name, ms, calls in rows[:10]:
         print(f"  {ms:.4f} ({calls:g})  {name[:90]}", flush=True)
+    for name, chain in CARRY_CHAINS.items():
+        carry = [r for r in rows if chain in r[0]]
+        if carry:
+            print(f"  {name}: {sum(r[1] for r in carry):.4f} ms per sweep on the device over "
+                  f"{sum(r[2] for r in carry):g} launches", flush=True)
     k4 = [r for r in rows if any(k in r[0] for k in
                                  ("take0_kernel", "hook_min_kernel", "pointer_jump_kernel"))]
     print(f"  K4 kernels {sum(r[1] for r in k4):.4f} ms per sweep over "
@@ -784,7 +978,7 @@ def main() -> None:
                         if "registers" in l or "Compiling entry" in l))
 
     phase("3. kernels against their plain versions")
-    kernel_results = check_kernels(dev)
+    kernel_results, carry_bounds = check_kernels(dev)
 
     phase("4. physics: 8-site chain against ED")
     check_physics(dev)
@@ -814,6 +1008,7 @@ def main() -> None:
     launches["carry_decisions_heatbath"] = counts["carry_decisions_heatbath"]
     check_heatbath_agrees(met, ns_met, hb, ns_hb)
     check_physics(dev, heatbath=True)
+    check_recorded_carry(g_met, g_hb, carry_bounds)
     time_in_turns(g_met, g_hb)
     profile_sweeps(g_met, "32x32 Metropolis")
     profile_sweeps(g_hb, "32x32 heat-bath")

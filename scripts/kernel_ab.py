@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels K1 and K4 and the 32x32 SSE sweep of one checkout of the
-PyTorch port on one CUDA GPU, for comparing two checkouts on one card.
+"""Time kernels K1, K3, K3-hb and K4 and the 32x32 SSE sweeps of one
+checkout of the PyTorch port on one CUDA GPU, for comparing two checkouts
+on one card.
 
     python3 scripts/kernel_ab.py CHECKOUT LABEL
 
@@ -15,6 +16,9 @@ with the host's load. What it measures, each on the card:
   and ms per call from CUDA events (host included);
 - K4's ``take0`` on one [7000, 256] grid into an [8000, 256] table, device
   ms, beside ``torch.gather``'s;
+- K3 and K3-hb (``carry_decisions``, ``carry_decisions_heatbath``) at
+  M=7000, R=256 on random inputs, device ms per call, and at R=32, 1024
+  and 4224 (one CTA, 32 CTAs and one on each of 132 SMs in this design);
 - one hook-and-compress round on 8000 labels, 7000 edges, R=256, as the
   checkout's ``hook_compress_labels`` runs it (without the host read),
   device ms;
@@ -26,7 +30,9 @@ with the host's load. What it measures, each on the card:
   launched inside ``hook_compress_labels`` and inside the flip decisions'
   gathers (the profiler ties a kernel to an enclosing range only when an
   operator launched it, not a ctypes call, so the K4 kernels are counted
-  by name).
+  by name); and, from the same profile of the Metropolis sweep and of a
+  heat-bath sweep (``set_enable_heatbath(True)``, cutoff hint 6944), K3's
+  and K3-hb's device ms per sweep by kernel name.
 
 Imports nothing of JAX.
 """
@@ -45,11 +51,19 @@ import torch
 K4_KERNELS = ("take0_kernel", "hook_min_kernel", "pointer_jump_kernel")
 
 
-def device_ms(fn, reps: int, ranges: tuple[str, ...] = ()) -> tuple[float, dict, float, float]:
+# The carry kernels' names in a profile: this design's (template argument)
+# or the earlier one's.
+CARRY_KERNELS = {"k3": ("Metropolis", "carry_metropolis_kernel"),
+                 "k3hb": ("HeatBath", "carry_heatbath_kernel")}
+
+
+def device_ms(fn, reps: int, ranges: tuple[str, ...] = ()) -> tuple[float, dict, float, float,
+                                                                     dict]:
     """Device ms per call over ``reps`` calls (after one warm-up), the
     device ms per call of the operators' kernels inside each
     ``record_function`` range named in ``ranges``, the device events per
-    call, and the device ms per call of K4's kernels."""
+    call, the device ms per call of K4's kernels, and that of K3's and
+    K3-hb's (by the keys of CARRY_KERNELS)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -67,8 +81,10 @@ def device_ms(fn, reps: int, ranges: tuple[str, ...] = ()) -> tuple[float, dict,
     per_range = {e.key: e.device_time_total / 1e3 / reps for e in events
                  if e.key in ranges and e.device_type == cpu}
     k4 = sum(e.self_device_time_total for e in dev if any(k in e.key for k in K4_KERNELS))
+    carry = {name: sum(e.self_device_time_total for e in dev if any(k in e.key for k in keys))
+             / 1e3 / reps for name, keys in CARRY_KERNELS.items()}
     return (sum(e.self_device_time_total for e in dev) / 1e3 / reps, per_range,
-            sum(e.count for e in dev) / reps, k4 / 1e3 / reps)
+            sum(e.count for e in dev) / reps, k4 / 1e3 / reps, carry)
 
 
 def events_ms(fn, reps: int) -> float:
@@ -118,6 +134,24 @@ def main() -> None:
     idx64 = idx.long()
     out["take0_one_grid_device_ms"] = device_ms(lambda: ops.take0(table, idx), 100)[0]
     out["gather_one_grid_device_ms"] = device_ms(lambda: torch.gather(table, 0, idx64), 100)[0]
+
+    # K3 and K3-hb at the 32x32 shape: n0 near 0.6 M, masks and numerators
+    # on the scale of M - n, so both outcomes occur.
+    M = 7000
+    for Rc in (R, 32, 1024, 4224):
+        n0 = t(rng.integers(M // 2, 2 * M // 3, size=Rc))
+        u0 = torch.from_numpy(rng.random((M, Rc), dtype=np.float32)).to(dev)
+        idp = torch.from_numpy(rng.random((M, Rc)) < 0.4).to(dev)
+        dgp = ~idp & torch.from_numpy(rng.random((M, Rc)) < 0.9).to(dev)
+        num_ins = torch.from_numpy(rng.uniform(0, 0.6 * M, (M, Rc)).astype(np.float32)).to(dev)
+        num_rem = torch.from_numpy(rng.uniform(0, 1.2 * M, (M, Rc)).astype(np.float32)).to(dev)
+        insw = torch.from_numpy(rng.random((M, Rc)) < 0.7).to(dev)
+        bwt = torch.from_numpy(rng.uniform(0.5 * M, 0.9 * M, Rc).astype(np.float32)).to(dev)
+        tag = "" if Rc == R else f"_R{Rc}"
+        out[f"k3{tag}_device_ms"] = device_ms(
+            lambda: ops.carry_decisions(n0, u0, idp, dgp, num_ins, num_rem), 50)[0]
+        out[f"k3hb{tag}_device_ms"] = device_ms(
+            lambda: ops.carry_decisions_heatbath(n0, u0, idp, dgp, insw, bwt), 50)[0]
 
     # One round's body as the checkout's hook_compress_labels runs it, on
     # valid labels (P[x] <= x), without the host read.
@@ -175,17 +209,29 @@ def main() -> None:
 
     cl.hook_compress_labels, cl.take0 = hook_ranged, take0_ranged
     names = ("labels: hook_compress_labels", "labels: flip gathers")
-    total, ranges, n_events, k4 = device_ms(lambda: sweeps(1), 4, names)
+    total, ranges, n_events, k4, carry = device_ms(lambda: sweeps(1), 4, names)
     cl.hook_compress_labels, cl.take0 = hook, take0
     out["sse_device_ms_per_sweep"] = total
     out["sse_device_events_per_sweep"] = n_events
     out["sse_k4_kernels_device_ms_per_sweep"] = k4
+    out["sse_k3_device_ms_per_sweep"] = carry["k3"]
     out["sse_hook_operators_device_ms_per_sweep"] = ranges.get(names[0], 0.0)
     out["sse_flip_gathers_operators_device_ms_per_sweep"] = ranges.get(names[1], 0.0)
     out["sse_label_stage_device_ms_per_sweep"] = k4 + sum(ranges.values())
     # The sweep again without the ranges, as a check that they move nothing.
     total2 = device_ms(lambda: sweeps(1), 4)[0]
     out["sse_device_ms_per_sweep_without_ranges"] = total2
+
+    # The heat-bath sweep: its device ms and K3-hb's, per sweep.
+    g = QmcIsingGraph(lattice.bench_two_d_periodic(32), 1.0, cutoff=6944, replicas=256,
+                      seed=7, device=dev)
+    g.set_enable_heatbath(True)
+    g.timesteps(48, 1.0)
+    sweeps(16).cpu()
+    total, _, n_events, _, carry = device_ms(lambda: sweeps(1), 4)
+    out["sse_hb_device_ms_per_sweep"] = total
+    out["sse_hb_device_events_per_sweep"] = n_events
+    out["sse_hb_k3hb_device_ms_per_sweep"] = carry["k3hb"]
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True,
                                  text=True).stdout.strip()

@@ -33,6 +33,7 @@ from isingmontecarlo_tpu.sse import ising as jising
 from isingmontecarlo_tpu.sse import model as jmodel
 from isingmontecarlo_tpu.sse import tables as jtables
 from isingmontecarlo_tpu_torch import convert, ops
+from isingmontecarlo_tpu_torch.ops.diag_carry import tie_heavy_carry_inputs
 from isingmontecarlo_tpu_torch.sse import diagonal as tdiag
 from isingmontecarlo_tpu_torch.sse import ising as tising
 from isingmontecarlo_tpu_torch.sse import model as tmodel
@@ -54,9 +55,16 @@ def _carry_inputs(M, R, seed):
     return n0, u0, idp, dgp, insw, bwt
 
 
-@pytest.mark.parametrize("M,R", [(700, 5), (200, 16)])
-def test_carry_heatbath_matches_pallas(M, R):
-    n0, u0, idp, dgp, insw, bwt = _carry_inputs(M, R, M + R)
+@pytest.mark.parametrize("M,R,ties", [
+    pytest.param(700, 5, False, id="700-5"),
+    pytest.param(200, 16, False, id="200-16"),
+    # Slots on or within an ulp of the comparisons' edge, R a multiple of
+    # neither 16 nor 32, M not of the kernel's 64-slot tile.
+    pytest.param(300, 7, True, id="ties-300-7"),
+])
+def test_carry_heatbath_matches_pallas(M, R, ties):
+    n0, u0, idp, dgp, insw, bwt = (tie_heavy_carry_inputs(M, R, M + R, heatbath=True) if ties
+                                   else _carry_inputs(M, R, M + R))
     j = jnp.asarray
     ins_j, rem_j = jax_carry(j(n0), j(u0), j(idp), j(dgp), j(insw), j(insw), j(bwt),
                              M=M, heatbath=True, interpret=True)
@@ -70,17 +78,41 @@ def test_carry_heatbath_matches_pallas(M, R):
 
 @pytest.mark.cuda
 def test_cuda_carry_heatbath_equals_plain():
+    """K3-hb against its plain version on the card: R a multiple of neither
+    32 nor 16 and M of no 64-slot tile; R a multiple of 16 but not of 32;
+    planes off 16-byte alignment (the element-wise path); random and
+    tie-heavy inputs. M >= 2^24 is refused before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU and nvcc")
-    for M, R in ((37, 5), (700, 64)):
-        args = [torch.from_numpy(a).cuda() for a in _carry_inputs(M, R, 1)]
-        before = ops.carry_decisions_heatbath.launches
-        got = ops.carry_decisions_heatbath(*args)
-        want = ops.carry_decisions_heatbath_plain(*args)
-        torch.cuda.synchronize()
-        assert ops.carry_decisions_heatbath.launches == before + 1
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+    for M, R in ((37, 5), (300, 48), (700, 64), (1000, 100)):
+        for args in (_carry_inputs(M, R, 1), tie_heavy_carry_inputs(M, R, 2, heatbath=True)):
+            args = [torch.from_numpy(a).cuda() for a in args]
+            before = ops.carry_decisions_heatbath.launches
+            got = ops.carry_decisions_heatbath(*args)
+            want = ops.carry_decisions_heatbath_plain(*args)
+            torch.cuda.synchronize()
+            assert ops.carry_decisions_heatbath.launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    args = [torch.from_numpy(a).cuda()
+            for a in tie_heavy_carry_inputs(300, 64, 3, heatbath=True)]
+    shifted = []
+    for a in args:  # every [M, R] plane one element past a 16-byte boundary
+        if a.dim() == 2:
+            buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+            a = buf[1:].view(a.shape).copy_(a)
+        shifted.append(a)
+    for g, w in zip(ops.carry_decisions_heatbath(*shifted),
+                    ops.carry_decisions_heatbath_plain(*args)):
+        assert torch.equal(g, w)
+    mask = torch.empty((2**24, 1), dtype=torch.bool, device="cuda")
+    big = (torch.zeros(1, dtype=torch.int32, device="cuda"),
+           torch.empty((2**24, 1), dtype=torch.float32, device="cuda"), mask, mask, mask,
+           torch.zeros(1, device="cuda"))
+    before = ops.carry_decisions_heatbath.launches
+    with pytest.raises(ValueError, match="2\\^24"):
+        ops.carry_decisions_heatbath(*big)
+    assert ops.carry_decisions_heatbath.launches == before
 
 
 @pytest.mark.parametrize("on_tpu", [False, True])

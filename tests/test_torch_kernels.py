@@ -11,6 +11,8 @@ from isingmontecarlo_tpu.ops.diag_carry import carry_decisions as jax_carry
 from isingmontecarlo_tpu.ops.parity_kernel import parity_bits as jax_parity
 from isingmontecarlo_tpu.ops.take_kernel import take0 as jax_take0
 from isingmontecarlo_tpu_torch import ops
+from isingmontecarlo_tpu_torch.ops import _build
+from isingmontecarlo_tpu_torch.ops.diag_carry import tie_heavy_carry_inputs
 
 torch.set_num_threads(1)
 
@@ -91,9 +93,8 @@ def test_parity_bits_plain_chunks_thread_the_carry(monkeypatch):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("M,R", [(700, 5), (200, 16)])
-def test_carry_decisions_matches_pallas(M, R):
-    rng = np.random.default_rng(M + R)
+def _carry_inputs(M, R, seed):
+    rng = np.random.default_rng(seed)
     n0 = rng.integers(0, M // 2, size=R).astype(np.int32)
     u0 = rng.random((M, R), dtype=np.float32)
     idp = rng.random((M, R)) < 0.5
@@ -101,6 +102,19 @@ def test_carry_decisions_matches_pallas(M, R):
     # Numerators on the scale of M - n, so both outcomes occur.
     num_ins = rng.uniform(0, M, (M, R)).astype(np.float32)
     num_rem = rng.uniform(0, 2 * M, (M, R)).astype(np.float32)
+    return n0, u0, idp, dgp, num_ins, num_rem
+
+
+@pytest.mark.parametrize("M,R,ties", [
+    pytest.param(700, 5, False, id="700-5"),
+    pytest.param(200, 16, False, id="200-16"),
+    # Slots on the comparisons' edge (exact ties), R a multiple of neither
+    # 16 nor 32, M not of the kernel's 64-slot tile.
+    pytest.param(300, 7, True, id="ties-300-7"),
+])
+def test_carry_decisions_matches_pallas(M, R, ties):
+    n0, u0, idp, dgp, num_ins, num_rem = (
+        tie_heavy_carry_inputs(M, R, M + R) if ties else _carry_inputs(M, R, M + R))
     ins_j, rem_j = jax_carry(
         jnp.asarray(n0), jnp.asarray(u0), jnp.asarray(idp), jnp.asarray(dgp),
         jnp.asarray(num_ins), jnp.asarray(num_rem), jnp.zeros((R,), jnp.float32),
@@ -111,6 +125,66 @@ def test_carry_decisions_matches_pallas(M, R):
     np.testing.assert_array_equal(ins.numpy(), np.asarray(ins_j))
     np.testing.assert_array_equal(rem.numpy(), np.asarray(rem_j))
     assert ins.any() and rem.any()
+
+
+@pytest.mark.cuda
+def test_cuda_carry_metropolis_equals_plain():
+    """K3 against its plain version on the card: R a multiple of neither 32
+    nor 16 and M of no 64-slot tile; R a multiple of 16 but not of 32 (the
+    last CTA half full); planes off 16-byte alignment (the element-wise
+    path); random and tie-heavy inputs. M >= 2^24 is refused before any
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    for M, R in ((37, 5), (300, 48), (700, 64), (1000, 100)):
+        for args in (_carry_inputs(M, R, 1), tie_heavy_carry_inputs(M, R, 2)):
+            args = [torch.from_numpy(a).cuda() for a in args]
+            before = ops.carry_decisions.launches
+            got = ops.carry_decisions(*args)
+            want = ops.carry_decisions_plain(*args)
+            torch.cuda.synchronize()
+            assert ops.carry_decisions.launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    args = [torch.from_numpy(a).cuda() for a in tie_heavy_carry_inputs(300, 64, 3)]
+    shifted = []
+    for a in args:  # every [M, R] plane one element past a 16-byte boundary
+        if a.dim() == 2:
+            buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+            a = buf[1:].view(a.shape).copy_(a)
+        shifted.append(a)
+    for g, w in zip(ops.carry_decisions(*shifted), ops.carry_decisions_plain(*args)):
+        assert torch.equal(g, w)
+    big = [torch.empty(s, dtype=d, device="cuda") for s, d in (
+        ((1,), torch.int32), ((2**24, 1), torch.float32), ((2**24, 1), torch.bool),
+        ((2**24, 1), torch.bool), ((2**24, 1), torch.float32), ((2**24, 1), torch.float32))]
+    before = ops.carry_decisions.launches
+    with pytest.raises(ValueError, match="2\\^24"):
+        ops.carry_decisions(*big)
+    assert ops.carry_decisions.launches == before
+
+
+@pytest.mark.parametrize("heatbath", [False, True])
+def test_carry_kernels_refuse_m_of_2_to_24_before_launch(monkeypatch, heatbath):
+    """Where the kernel would run, M >= 2^24 raises before any launch: the
+    float carry of M - n would no longer be exact. (The wrapper is made to
+    take its kernel branch for CPU tensors; nothing is launched.)"""
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(_build, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(_build, "launch", no_launch)
+    M, R = 2**24, 1
+    n0 = torch.zeros(R, dtype=torch.int32)
+    u0 = torch.empty((M, R), dtype=torch.float32)
+    mask = torch.empty((M, R), dtype=torch.bool)
+    if heatbath:
+        call = lambda: ops.carry_decisions_heatbath(n0, u0, mask, mask, mask,  # noqa: E731
+                                                    torch.zeros(R))
+    else:
+        call = lambda: ops.carry_decisions(n0, u0, mask, mask, u0, u0)  # noqa: E731
+    with pytest.raises(ValueError, match="2\\^24"):
+        call()
 
 
 def test_wrappers_check_inputs_and_devices():
