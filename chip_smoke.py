@@ -15,7 +15,10 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    the latter, and each kernel's bound (bytes or operations at the card's
    published peaks; for K1 also the instruction-issue bound of its inner
    loop's SASS, for K3 and K3-hb the bound of their carry chain in the
-   SASS). K3 and K3-hb also at ragged shapes and on tie-heavy inputs, whose
+   SASS, for K2 the issue bound of its three kernels' loops). K1's
+   global-memory variant at ragged L and at 2048^2, R=2, where no cluster
+   holds the field; K2 at K = 1..6 on ragged shapes. K3 and K3-hb also at
+   ragged shapes and on tie-heavy inputs, whose
    slots sit on the comparisons' edge, timed on those too. K4's three
    entry points (``take0`` on one and on two grids, ``hook_min``,
    ``pointer_jump``) beside ``torch.gather``, and one
@@ -43,6 +46,10 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    spin-flip attempts/s, then the README's ``GraphState`` quickstart on the
    same lattice and worms on a small frustrated lattice; K1 must have been
    launched by this run.
+6b. The classical path past shared memory: ``LatticeIsing(2048,
+   replicas=2)`` through K1's global variant, equal to the plain version
+   on one call, then its energy per site against Onsager's at beta=0.3;
+   the global variant, and not the cluster kernel, must have been launched.
 
 Then one JSON line of per-kernel results, a line with the card's name and
 power limit, and last a JSON line with the device. The script needs no
@@ -82,6 +89,8 @@ C_TAKE, E_TAKE = 8000, 7000
 L_CB, R_CB, SWEEPS_CB, BETA_CB = 256, 64, 100, 0.4
 # K1 beyond one block's shared memory: only c = 8 CTAs a replica hold it.
 L_BIG, R_BIG, SWEEPS_BIG = 1024, 2, 4
+# K1 beyond every cluster's shared memory: its global-memory variant.
+L_HUGE, R_HUGE, SWEEPS_HUGE = 2048, 2, 4
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for K1's 32-bit integer work.
@@ -99,6 +108,8 @@ WARP_ISSUE_PER_CLOCK_PER_SM = 4
 KERNEL_INFO = {
     "checkerboard_multi_sweep": ("isingmontecarlo_tpu_torch/csrc/checkerboard.cu",
                                  "isingmontecarlo_tpu/ops/checkerboard.py:117"),
+    "checkerboard_multi_sweep_global": ("isingmontecarlo_tpu_torch/csrc/checkerboard_global.cu",
+                                        "isingmontecarlo_tpu/ops/checkerboard.py:117"),
     "parity_bits": ("isingmontecarlo_tpu_torch/csrc/parity_bits.cu",
                     "isingmontecarlo_tpu/ops/parity_kernel.py:95"),
     "carry_decisions": ("isingmontecarlo_tpu_torch/csrc/carry_metropolis.cu",
@@ -317,15 +328,13 @@ def carry_chain_bounds(M: int) -> dict:
     return out
 
 
-def inner_loop_instructions(sass: str) -> list[str] | None:
-    """The opcodes of K1's inner loop in a ``cuobjdump -sass`` listing: in
-    the 16-byte kernel (``checkerboard_kernel<true>``), the shortest span
-    from a backward branch's target to the branch that holds Philox's 20
-    multiplies (one 4-site group per trip: the loop is not unrolled)."""
-    func = re.search(r"Function : (\S*checkerboard_kernelILb1E\S*)\n(.*?)(?=\n\s*Function :|\Z)",
-                     sass, re.S)
+def sass_loops(sass: str, kernel: str) -> list[list[str]]:
+    """The opcodes of each loop of the first function whose mangled name
+    contains ``kernel`` in a ``cuobjdump -sass`` listing: every span from a
+    backward branch's target to the branch."""
+    func = re.search(r"Function : (\S*" + kernel + r"\S*)\n(.*?)(?=\n\s*Function :|\Z)", sass, re.S)
     if func is None:
-        return None
+        return []
     body = func.group(2)
     instrs = [(int(a, 16), op) for a, op in
               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)]
@@ -341,9 +350,17 @@ def inner_loop_instructions(sass: str) -> list[str] | None:
         at = int(m.group(1), 16)
         target = labels.get(m.group(2)) if m.group(2) else int(m.group(3), 16)
         if target is not None and target < at:
-            span = [op for a, op in instrs if target <= a <= at]
-            if sum(op.startswith("IMAD") for op in span) >= 20:
-                loops.append(span)
+            loops.append([op for a, op in instrs if target <= a <= at])
+    return loops
+
+
+def inner_loop_instructions(sass: str) -> list[str] | None:
+    """The opcodes of K1's inner loop in a ``cuobjdump -sass`` listing: in
+    the 16-byte kernel (``checkerboard_kernel<true>``), the shortest loop
+    that holds Philox's 20 multiplies (one 4-site group per trip: the loop
+    is not unrolled)."""
+    loops = [span for span in sass_loops(sass, "checkerboard_kernelILb1E")
+             if sum(op.startswith("IMAD") for op in span) >= 20]
     return min(loops, key=len) if loops else None
 
 
@@ -373,6 +390,110 @@ def k1_issue_bound(attempts: int) -> None:
     print(f"K1 issue bound: {len(loop)} SASS instructions per 4-site group in the inner "
           f"loop ({len(loop) / 4:.2f} per attempt), {n_sms} SMs at {clocks[1].strip()} MHz "
           f"(now {clocks[0].strip()} MHz): {ms:.4f} ms", flush=True)
+
+
+# K2's slots a warp walks per trip of its tile loop (kTileSlots in
+# csrc/parity_bits.cu) and segment rows per trip of its prefix loop (kBatch).
+K2_TILE_SLOTS = {1: 32, 2: 16}
+K2_PREFIX_BATCH = 32
+
+
+def k2_issue_bound(K: int, M: int, R: int, N: int) -> float | None:
+    """Print K2's instruction-issue bound at (K, M, R, N) and return it in
+    ms: for each of its three kernels, the SASS instructions of its longest
+    loop (a tile of slots in ``parity_segments_kernel<K>`` and
+    ``parity_bits_kernel<K, true>``, a batch of segment rows in
+    ``parity_prefix_kernel``; from ``cuobjdump -sass`` of the built
+    library) times the trips of this call's segments, over four warp
+    instructions per clock per SM at the card's maximum SM clock. Or None,
+    printing why it was not measured."""
+    from pathlib import Path
+
+    from isingmontecarlo_tpu_torch.ops import parity_kernel
+
+    try:
+        tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+        sass = run([str(tool), "-sass", str(_build.library_path())])
+    except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+        print(f"K2 issue bound: not measured ({e})", flush=True)
+        return None
+    names = {"segments": f"parity_segments_kernelILi{K}E", "walk": f"parity_bits_kernelILi{K}ELb1E",
+             "prefix": "parity_prefix_kernel"}
+    loops = {k: max(sass_loops(sass, v), key=len, default=None) for k, v in names.items()}
+    if any(v is None for v in loops.values()):
+        print(f"K2 issue bound: not measured (no loop found for "
+              f"{[k for k, v in loops.items() if v is None]})", flush=True)
+        return None
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f_sm = 1e6 * float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"]))
+    seg_len = parity_kernel.segment_length(M, R, n_sms)
+    nseg, rgroups, tile = -(-M // seg_len), -(-R // 32), K2_TILE_SLOTS.get(K, 8)
+    trips = {"segments": rgroups * (nseg - 1) * -(-seg_len // tile),
+             "walk": rgroups * nseg * -(-seg_len // tile),
+             "prefix": -(-(-(-N // 32) * R) // 32) * -(-nseg // K2_PREFIX_BATCH)}
+    warp_instrs = sum(len(loops[k]) * trips[k] for k in loops)
+    ms = 1e3 * warp_instrs / (WARP_ISSUE_PER_CLOCK_PER_SM * n_sms * f_sm)
+    print(f"K2 issue bound at K={K}, M={M}, R={R}, N={N} ({nseg} segments of {seg_len} "
+          f"slots): loops of {len(loops['segments'])}, {len(loops['walk'])} and "
+          f"{len(loops['prefix'])} SASS instructions (a tile of {tile} slots, a tile of "
+          f"{tile} slots, {K2_PREFIX_BATCH} segment rows) in the segments, walk and prefix "
+          f"kernels, {warp_instrs:.4e} warp instructions over {n_sms} SMs at "
+          f"{f_sm / 1e6:.0f} MHz: {ms:.4f} ms", flush=True)
+    return ms
+
+
+def parity_inputs(rng, dev, K: int, M: int, R: int, N: int) -> tuple:
+    """Random arguments of K2 at any K: the K legs of a slot name distinct
+    variables (as every bond's do), ~10% sentinel legs and queries."""
+    v = np.argsort(rng.random((M, R, N)), axis=-1)[..., :K]
+    v = np.ascontiguousarray(np.moveaxis(v, -1, 0)).astype(np.int32)
+    vq = rng.integers(0, N, size=(K, M, R)).astype(np.int32)
+    v[rng.random((K, M, R)) < 0.1] = N
+    vq[rng.random((K, M, R)) < 0.1] = N + 5
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                 (rng.random((R, N)) < 0.5, v, rng.random((K, M, R)) < 0.3, vq))
+
+
+def check_parity(dev, rng, full: tuple) -> dict:
+    """Phase 3 for K2: equal to the plain version at K = 1..6 on ragged
+    shapes (R not a multiple of 4 or 32, M not a multiple of 4, N not a
+    multiple of 32, one segment and many), and at the 32x32 shape (K=2,
+    M=7000, R=256, N=1024), where both are timed (device ms by
+    ``torch.profiler``, the three kernels of a call summed; CUDA events for
+    a call), beside the byte bound and the SASS issue bound."""
+    ragged = ((37, 5, 9), (301, 48, 40), (130, 33, 37), (7, 1, 6), (1000, 64, 70),
+              (700, 256, 1024))
+    for k in range(1, 7):
+        for m, r, n in ragged:
+            args = parity_inputs(rng, dev, k, m, r, n)
+            got, want = ops.parity_bits(*args), ops.parity_bits_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"parity_bits differs from its plain version at K={k}, "
+                                     f"M={m}, R={r}, N={n}")
+    print(f"parity_bits equal to plain at K = 1..6 on (M, R, N) in {list(ragged)}", flush=True)
+    got, want = ops.parity_bits(*full), ops.parity_bits_plain(*full)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("parity_bits differs from its plain version at the 32x32 shape")
+    err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    ms = device_ms(lambda: ops.parity_bits(*full), 50)
+    call_ms = cuda_ms(lambda: ops.parity_bits(*full), 50)
+    plain_ms = cuda_ms(lambda: ops.parity_bits_plain(*full), 3)
+    # Each input read once and each output written once; K2 does a few
+    # integer operations per byte, so bytes set this bound.
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound(nbytes(*full, *got)), "library_ms": None}
+    K2, M2, R2 = full[1].shape
+    issue = k2_issue_bound(K2, M2, R2, full[0].shape[1])
+    print(f"parity_bits: equal to plain (max_abs_err {err}); kernels {ms:.4f} ms on the device "
+          f"({call_ms:.4f} ms a call, CUDA events), plain {plain_ms:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}), issue bound "
+          f"{issue if issue is None else f'{issue:.4f} ms'}; input shapes "
+          f"{[tuple(a.shape) for a in full]}", flush=True)
+    return res
 
 
 def check_checkerboard(dev) -> dict:
@@ -436,6 +557,46 @@ def check_checkerboard(dev) -> dict:
           f"replica, two passes (the rule picks c={c_main} at R={R_CB}, "
           f"c={cb.cluster_size(256, L_CB, n_sms)} at R=256 on {n_sms} SMs): "
           + json.dumps(table), flush=True)
+    return res
+
+
+def check_checkerboard_global(dev) -> dict:
+    """Phase 3 for K1's global-memory variant: equal to the plain version at
+    ragged shapes (L=6: the byte path; L=10: H=5 bytes a row; L=16: words)
+    and at L=2048, R=2, where no cluster holds the field and the default
+    dispatch takes it; both timed there."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for Rc, L, nsweeps in ((3, 6, 5), (2, 10, 3), (3, 16, 4), (1, 1362, 2)):
+        spins = torch.rand((Rc, L, L), generator=gen, device=dev) < 0.5
+        want = ops.checkerboard_multi_sweep_plain(spins, 77, 0.7, -1.0, 0.3, nsweeps)
+        got = ops.checkerboard_multi_sweep_global(spins, 77, 0.7, -1.0, 0.3, nsweeps)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"checkerboard_multi_sweep_global differs from its plain "
+                                 f"version at {tuple(spins.shape)}, {nsweeps} sweeps")
+    spins = torch.rand((R_HUGE, L_HUGE, L_HUGE), generator=gen, device=dev) < 0.5
+    args = (12345, BETA_CB, -1.0, 0.1, SWEEPS_HUGE)
+    want = ops.checkerboard_multi_sweep_plain(spins, *args)
+    before = ops.checkerboard_multi_sweep_global.launches
+    got = ops.checkerboard_multi_sweep(spins, *args)  # the default dispatch at this L
+    torch.cuda.synchronize()
+    if cb.k1_variant(L_HUGE) != "global" or ops.checkerboard_multi_sweep_global.launches != before + 1:
+        raise AssertionError(f"L={L_HUGE} did not take K1's global variant")
+    if not torch.equal(got, want) or torch.equal(got, spins):
+        raise AssertionError(f"checkerboard_multi_sweep_global differs from its plain version "
+                             f"at {tuple(spins.shape)}, or changed no spin")
+    err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    ms = device_ms(lambda: ops.checkerboard_multi_sweep_global(spins, *args), 10)
+    call_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_global(spins, *args), 10)
+    plain_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_plain(spins, *args), 1)
+    attempts = spins.numel() * SWEEPS_HUGE
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound(2 * nbytes(spins), attempts * K1_OPS_PER_ATTEMPT), "library_ms": None}
+    print(f"checkerboard_multi_sweep_global: equal to plain at L=6, 10, 16, 1362 and "
+          f"{tuple(spins.shape)} (max_abs_err {err}); {SWEEPS_HUGE} sweeps {ms:.4f} ms on the "
+          f"device ({2 * SWEEPS_HUGE + 2} kernels; {call_ms:.4f} ms a call, CUDA events), plain "
+          f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, published "
+          f"f32 peak); {attempts / (ms * 1e-3):.4e} attempts/s in the kernels", flush=True)
     return res
 
 
@@ -641,35 +802,12 @@ def check_kernels(dev) -> tuple[dict, dict]:
     """Phase 3: every kernel equals its plain version on the card, at a
     small ragged shape and at the main-path shape, where both are timed.
     Returns the per-kernel results and K3's and K3-hb's chain bounds."""
-    results = {"checkerboard_multi_sweep": check_checkerboard(dev), **check_labels(dev)}
+    results = {"checkerboard_multi_sweep": check_checkerboard(dev),
+               "checkerboard_multi_sweep_global": check_checkerboard_global(dev),
+               **check_labels(dev)}
     rng = np.random.default_rng(0)
-    wrappers = {
-        "parity_bits": (ops.parity_bits, ops.parity_bits_plain, 20, 3),
-    }
-    ragged = kernel_inputs(rng, dev, K, 37, 5, 9)
     full = kernel_inputs(rng, dev, K, M, R, N)
-    for name, (kernel, plain, reps, plain_reps) in wrappers.items():
-        for args in (ragged[name], full[name]):
-            got = as_tuple(kernel(*args))
-            want = as_tuple(plain(*args))
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"{name}: kernel differs from its plain "
-                                         f"version at {[tuple(a.shape) for a in args]}")
-        err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                  for g, w in zip(got, want))
-        ms = cuda_ms(lambda: kernel(*args), reps)
-        plain_ms = cuda_ms(lambda: plain(*args), plain_reps)
-        # Each input read once and each output written once; K2 does a few
-        # integer operations per byte, so bytes set the bound.
-        res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               **bound(nbytes(*args, *got)), "library_ms": None}
-        shapes = [tuple(a.shape) for a in args]
-        print(f"{name}: equal to plain (max_abs_err {err}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']}); input shapes {shapes}", flush=True)
-        results[name] = res
+    results["parity_bits"] = check_parity(dev, rng, full["parity_bits"])
     carry_bounds = carry_chain_bounds(M)
     return {**results, **check_carry(dev, rng, full, carry_bounds)}, carry_bounds
 
@@ -791,6 +929,9 @@ def profile_sweeps(g: QmcIsingGraph, label: str, nsweeps: int = 4) -> None:
         if carry:
             print(f"  {name}: {sum(r[1] for r in carry):.4f} ms per sweep on the device over "
                   f"{sum(r[2] for r in carry):g} launches", flush=True)
+    k2 = [r for r in rows if "parity_" in r[0]]  # its three kernels
+    print(f"  K2 kernels {sum(r[1] for r in k2):.4f} ms per sweep on the device over "
+          f"{sum(r[2] for r in k2):g} kernel launches", flush=True)
     k4 = [r for r in rows if any(k in r[0] for k in
                                  ("take0_kernel", "hook_min_kernel", "pointer_jump_kernel"))]
     print(f"  K4 kernels {sum(r[1] for r in k4):.4f} ms per sweep over "
@@ -955,6 +1096,32 @@ def run_classical(dev) -> dict:
     return out
 
 
+def run_classical_global(dev) -> dict:
+    """Phase 6b: ``LatticeIsing(2048, replicas=2)``, a field that no cluster
+    holds, through K1's global variant: a call equal to the plain version
+    on the same spins and seed, then the energy per site at beta=0.3 after
+    equilibration against Onsager's value (the correlation length is a few
+    sites, so 2048^2 is the infinite lattice to within the statistics)."""
+    t0 = time.perf_counter()
+    g = LatticeIsing(L_HUGE, j=-1.0, replicas=R_HUGE, seed=9, device=dev)
+    start = g.spins.clone()
+    g.run_sweeps(SWEEPS_HUGE, 0.3)
+    want = ops.checkerboard_multi_sweep_plain(start, 9 * 1000003 + 1, 0.3, -1.0, 0.0,
+                                              SWEEPS_HUGE)
+    if not torch.equal(g.spins, want):
+        raise AssertionError(f"LatticeIsing({L_HUGE}) differs from the plain version")
+    e, m = lattice_observables(g, 0.3, 200, 10, 5)
+    exact = onsager_energy(0.3)
+    se = e.std(ddof=1) / np.sqrt(len(e)) if len(e) > 1 else 0.0
+    print(f"LatticeIsing({L_HUGE}, replicas={R_HUGE}): a call equal to the plain version; "
+          f"beta=0.3 E/site {e.mean():.6f} (replicas {np.array2string(e, precision=6)}; "
+          f"Onsager {exact:.6f}), |M|/site {m.mean():.6f}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (np.all(np.isfinite(e)) and abs(e.mean() - exact) < 2e-3):
+        raise AssertionError(f"E/site on the {L_HUGE}^2 lattice is off Onsager's value")
+    return {"energy_per_site_beta_0.3": float(e.mean())}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1022,6 +1189,17 @@ def main() -> None:
     if counts["checkerboard_multi_sweep"] <= 0:
         raise AssertionError(f"K1 was not launched by the classical path: {counts}")
     launches["checkerboard_multi_sweep"] = counts["checkerboard_multi_sweep"]
+
+    phase("6b. classical path past shared memory: 2048^2 lattice")
+    ops.reset_launch_counts()
+    run_classical_global(dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"kernel launches in the 2048^2 classical path: {counts}", flush=True)
+    if counts["checkerboard_multi_sweep_global"] <= 0 or counts["checkerboard_multi_sweep"]:
+        raise AssertionError(f"the 2048^2 lattice did not run through K1's global variant "
+                             f"alone: {counts}")
+    launches["checkerboard_multi_sweep_global"] = counts["checkerboard_multi_sweep_global"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -44,7 +44,8 @@
 // (L * L bytes in one block); the wrapper now picks c so that the R * c CTAs
 // run in one wave over as many SMs as it can (a 1024-thread CTA's registers
 // leave no room for a second on its SM), and L reaches 1360 at c = 8
-// (L * L / 8 bytes a CTA). The instruction count matters most: the 16-byte
+// (L * L / 8 bytes a CTA); larger fields take checkerboard_global.cu. The
+// instruction count matters most: the 16-byte
 // path's inner loop is one Philox call and ~60 instructions more for four
 // attempts, with no division (a thread keeps its column quad) and plain
 // shared loads for every row but the band's two edges.
@@ -53,30 +54,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
 #include "status.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;  // Random123's
-constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
 constexpr int kMaxThreads = 1024;
-constexpr float kTwo24 = 16777216.0f;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
 
 __device__ __forceinline__ uint32_t word_at(const uint8_t* row, int k) {
   return *reinterpret_cast<const uint32_t*>(row + k);
@@ -132,10 +117,7 @@ checkerboard_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   const uint32_t down = cluster_addr(planes, (rank + 1) % c);
 
   // Strided: a small field's 16-byte path may launch fewer than 10 threads.
-  for (int i = threadIdx.x; i < 10; i += blockDim.x) {
-    const float q = __fmul_rn(table[i], kTwo24);
-    thr[i] = q >= kTwo24 ? 1u << 24 : q > 0.0f ? (uint32_t)ceilf(q) : 0u;
-  }
+  for (int i = threadIdx.x; i < 10; i += blockDim.x) thr[i] = accept_threshold(table[i]);
   for (int i = threadIdx.x; i < B * L; i += blockDim.x) {
     const int y = i / L, x = i - y * L;
     planes[((x + y0 + y) & 1) * BH + y * H + (x >> 1)] = src[i] != 0;

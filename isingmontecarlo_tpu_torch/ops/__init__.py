@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) for the TPU kernels of
-the classical checkerboard path and the SSE timestep (K4's gather also
-takes the hook-and-compress steps around it, as three entry points), each
-beside its plain PyTorch version. The library builds from ``csrc/`` at
+the classical checkerboard path (K1, in a shared-memory and a global-memory
+variant) and the SSE timestep (K4's gather also takes the hook-and-compress
+steps around it, as three entry points), each beside its plain PyTorch
+version. The library builds from ``csrc/`` at
 first use (see :mod:`._build`)."""
 
 from isingmontecarlo_tpu_torch.ops.checkerboard import (
     checkerboard_multi_sweep,
+    checkerboard_multi_sweep_global,
     checkerboard_multi_sweep_plain,
 )
 from isingmontecarlo_tpu_torch.ops.diag_carry import (
@@ -28,8 +30,8 @@ from isingmontecarlo_tpu_torch.ops.take_kernel import (
 )
 
 # The wrappers whose ``launches`` count the kernel launches of a run.
-KERNELS = (checkerboard_multi_sweep, parity_bits, carry_decisions,
-           carry_decisions_heatbath, take0, hook_min, pointer_jump)
+KERNELS = (checkerboard_multi_sweep, checkerboard_multi_sweep_global, parity_bits,
+           carry_decisions, carry_decisions_heatbath, take0, hook_min, pointer_jump)
 
 
 def reset_launch_counts() -> None:
@@ -48,6 +50,7 @@ __all__ = [
     "carry_decisions_heatbath_plain",
     "carry_decisions_plain",
     "checkerboard_multi_sweep",
+    "checkerboard_multi_sweep_global",
     "checkerboard_multi_sweep_plain",
     "hook_min",
     "hook_min_plain",

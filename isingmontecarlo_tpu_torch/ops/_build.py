@@ -39,6 +39,9 @@ _SIGNATURES = {
     # in, out, table, seed word 0, seed word 1, R, L, CTAs per replica,
     # nsweeps, stream
     "ising_checkerboard": (_P, _P, _P, _U, _U, _I, _I, _I, _I, _P),
+    # in, out, planes (scratch), table, seed word 0, seed word 1, R, L,
+    # nsweeps, stream
+    "ising_checkerboard_global": (_P, _P, _P, _P, _U, _U, _I, _I, _I, _P),
     # table, idx, out, idx2, out2 (both null for one grid), C, E, E2, R, stream
     "ising_take0": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # P, Pn, u, v, first, S, E, R, stream
@@ -137,6 +140,11 @@ def use_kernel(device: torch.device) -> bool:
     if device.type == "cuda":
         return True
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs, which sets some kernels' launch geometry."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

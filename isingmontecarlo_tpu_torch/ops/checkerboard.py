@@ -2,11 +2,14 @@
 
 Replaces ``isingmontecarlo_tpu/ops/checkerboard.py::checkerboard_multi_sweep``
 (a Pallas kernel that holds one replica's field in VMEM for all sweeps).
-The CUDA kernel is ``csrc/checkerboard.cu``: a thread-block cluster of
-``c`` CTAs per replica, each holding a band of ``L/c`` rows of both colour
-planes in its shared memory and reading the rows beside its band from its
-neighbours' (:func:`cluster_size` picks ``c``); see that file for what
-bounds it on the card.
+The CUDA kernel has two variants, and :func:`k1_variant` picks one from L.
+``csrc/checkerboard.cu``: a thread-block cluster of ``c`` CTAs per
+replica, each holding a band of ``L/c`` rows of both colour planes in its
+shared memory and reading the rows beside its band from its neighbours'
+(:func:`cluster_size` picks ``c``). ``csrc/checkerboard_global.cu``
+(:func:`checkerboard_multi_sweep_global`), for fields that no cluster
+holds: the planes in global memory, a launch per colour half-step. See
+those files for what bounds them on the card.
 
 Semantics (``src/classical/graph.rs:339-347, 430-447``): energy
 ``E = J sum_<ij> s_i s_j - h sum_i s_i``; each sweep updates the even plane
@@ -43,7 +46,8 @@ _MASK32 = 0xFFFFFFFF
 # A CTA holds a band of L/c rows of both int8 planes, L * L / c bytes, and
 # a 40-byte threshold table in the 232,448 bytes of shared memory an H100
 # block can have; c is at most 8 (the portable cluster size) and divides L,
-# so L <= 1360.
+# so the cluster variant takes L <= 1360 (not every even L below it), and
+# the global variant every other even L.
 MAX_SHARED_BYTES = 232_448
 TABLE_BYTES = 40
 CLUSTER_SIZES = (1, 2, 4, 8)
@@ -189,17 +193,23 @@ def checkerboard_multi_sweep_plain(spins, seed: int, beta, j, h,
 
 
 def cluster_sizes(L: int) -> list[int]:
-    """The CTAs per replica that can hold an L x L field: ``c`` in
+    """The CTAs per replica that can hold an L x L field (even L): ``c`` in
     :data:`CLUSTER_SIZES` that divides L and whose band of ``L * L / c``
-    bytes fits a CTA's shared memory. Raises when there is none."""
-    sizes = [c for c in CLUSTER_SIZES
-             if L % c == 0 and L * L // c + TABLE_BYTES <= MAX_SHARED_BYTES]
-    if not sizes:
-        raise ValueError(
-            f"L={L}: no cluster of c in {CLUSTER_SIZES} CTAs with L % c == 0 holds "
-            f"a band of L*L/c bytes in a CTA's {MAX_SHARED_BYTES} bytes of shared "
-            f"memory (the largest L is 1360, at c=8)")
-    return sizes
+    bytes fits a CTA's shared memory; empty when there is none."""
+    if L % 2:
+        raise ValueError(f"checkerboard sweeps need an even L, got L={L}")
+    return [c for c in CLUSTER_SIZES
+            if L % c == 0 and L * L // c + TABLE_BYTES <= MAX_SHARED_BYTES]
+
+
+def k1_variant(L: int) -> str:
+    """K1's variant for an L x L field (even L): ``"cluster"`` (shared
+    memory, ``csrc/checkerboard.cu``) when some cluster size holds it, else
+    ``"global"`` (``csrc/checkerboard_global.cu``). On an H100 the cluster
+    variant takes every even L up to 680, the multiples of 4 up to 964 and
+    the multiples of 8 up to 1360; every other even L (the first is 682)
+    takes the global one."""
+    return "cluster" if cluster_sizes(L) else "global"
 
 
 def cluster_size(R: int, L: int, n_sms: int) -> int:
@@ -210,8 +220,12 @@ def cluster_size(R: int, L: int, n_sms: int) -> int:
     more per replica adds remote rows and cluster barriers, so past one
     wave a larger c only costs (on an H100 at L=256, 100 sweeps: R=64 ran
     0.82 ms at c=2 and 1.46 ms at c=4; R=256 2.72 ms at c=1 and 3.26 ms at
-    c=2; ``chip_smoke.py`` phase 3)."""
+    c=2; ``chip_smoke.py`` phase 3). Raises for an L that takes the global
+    variant."""
     sizes = cluster_sizes(L)
+    if not sizes:
+        raise ValueError(f"L={L}: no cluster size holds the field in shared memory; "
+                         f"K1 takes its global variant")
     return max((c for c in sizes if R * c <= n_sms), default=sizes[0])
 
 
@@ -220,21 +234,26 @@ def checkerboard_multi_sweep(spins: torch.Tensor, seed: int, beta, j, h,
     """``nsweeps`` checkerboard Metropolis sweeps of ``spins bool[R, L, L]``
     (even L) with uniform ``j`` and ``h``; returns the new ``bool[R, L, L]``.
 
-    A CPU tensor takes :func:`checkerboard_multi_sweep_plain`; a CUDA tensor
-    launches the kernel (counted in ``checkerboard_multi_sweep.launches``)
-    with ``cluster`` CTAs per replica (default :func:`cluster_size` for the
-    card), or raises: also when no cluster size holds the field in shared
-    memory, or when the card cannot schedule the cluster."""
+    A CPU tensor takes :func:`checkerboard_multi_sweep_plain`. A CUDA tensor
+    launches K1's variant for L (:func:`k1_variant`): the cluster kernel
+    (counted in ``checkerboard_multi_sweep.launches``) with ``cluster`` CTAs
+    per replica (default :func:`cluster_size` for the card), or
+    :func:`checkerboard_multi_sweep_global`; or raises: also when
+    ``cluster`` is not a size that holds the field in shared memory, or
+    when the card cannot schedule the cluster."""
     R, L = _check_lattice(spins)
     _build.check(spins, "spins", torch.bool, (R, L, L), spins.device)
     if not _build.use_kernel(spins.device):
         return checkerboard_multi_sweep_plain(spins, seed, beta, j, h, nsweeps)
     sizes = cluster_sizes(L)
     if cluster is None:
-        n_sms = torch.cuda.get_device_properties(spins.device).multi_processor_count
-        cluster = cluster_size(R, L, n_sms)
+        if k1_variant(L) == "global":
+            return checkerboard_multi_sweep_global(spins, seed, beta, j, h, nsweeps)
+        cluster = cluster_size(R, L, _build.sm_count(spins.device))
     elif cluster not in sizes:
-        raise ValueError(f"cluster={cluster}: L={L} takes a cluster size in {sizes}")
+        raise ValueError(f"cluster={cluster}: L={L} takes a cluster size in {sizes} (c "
+                         f"divides L and a band of L*L/c bytes fits a CTA's "
+                         f"{MAX_SHARED_BYTES} bytes of shared memory)")
     out = torch.empty_like(spins)
     table = accept_table(beta, j, h, spins.device)
     k0, k1 = seed_words(seed)
@@ -244,3 +263,32 @@ def checkerboard_multi_sweep(spins: torch.Tensor, seed: int, beta, j, h,
 
 
 checkerboard_multi_sweep.launches = 0
+
+
+def checkerboard_multi_sweep_global(spins: torch.Tensor, seed: int, beta, j, h,
+                                    nsweeps: int) -> torch.Tensor:
+    """K1's global-memory variant (``csrc/checkerboard_global.cu``) at any
+    even L, with the semantics and draws of :func:`checkerboard_multi_sweep`:
+    the colour planes live in a scratch buffer in global memory, and each
+    half-step is a launch of its own. :func:`checkerboard_multi_sweep` takes
+    it for fields that no cluster holds.
+
+    A CPU tensor takes :func:`checkerboard_multi_sweep_plain`; a CUDA tensor
+    calls the variant's entry point, which launches ``2 * nsweeps + 2``
+    kernels and counts once in ``checkerboard_multi_sweep_global.launches``,
+    or raises."""
+    R, L = _check_lattice(spins)
+    _build.check(spins, "spins", torch.bool, (R, L, L), spins.device)
+    if not _build.use_kernel(spins.device):
+        return checkerboard_multi_sweep_plain(spins, seed, beta, j, h, nsweeps)
+    out = torch.empty_like(spins)
+    planes = torch.empty((R, L * L), dtype=torch.uint8, device=spins.device)
+    table = accept_table(beta, j, h, spins.device)
+    k0, k1 = seed_words(seed)
+    _build.launch("ising_checkerboard_global", spins, out, planes, table, k0, k1, R, L,
+                  nsweeps)
+    checkerboard_multi_sweep_global.launches += 1
+    return out
+
+
+checkerboard_multi_sweep_global.launches = 0

@@ -3,9 +3,10 @@
 Replaces ``isingmontecarlo_tpu/ops/parity_kernel.py::parity_bits``. The
 interface takes the p=0 state unpacked (``bool[R, N]``) and marks sentinel
 legs by a variable outside ``[0, N)``; the 32-bit word packing is internal
-to the CUDA kernel, ``csrc/parity_bits.cu`` (a two-pass scan over segments
-of M, one thread per replica and segment, carry in shared memory). See that
-file for what bounds it on the card.
+to the CUDA kernel, ``csrc/parity_bits.cu`` (a scan over segments of M: a
+warp per 32 replicas and segment, carry in shared memory, the segments'
+prefix in one linear pass). Any number of legs K. See that file for what
+bounds it on the card.
 """
 
 from __future__ import annotations
@@ -17,9 +18,24 @@ from isingmontecarlo_tpu_torch.ops import _build
 # Elements of one M-chunk's [Mc, R, N+1] flip tensor in the plain version.
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
-# The kernel cuts M into about this many segments per replica (whole tiles
-# of 16 slots each), so that R * _SEGMENTS threads share the serial scan.
-_SEGMENTS = 64
+# The kernel cuts M into segments, a warp each per 32 replicas, so that
+# about this many warps share each SM (the chain of a segment is latency:
+# more warps hide it, while each segment adds an N-bit vector to the
+# scratch that the prefix pass reads and writes). On an H100 at K=2,
+# M=7000, R=256, N=1024, 16 ran fastest of 4, 8, 12, 16, 24 and 32.
+_WARPS_PER_SM = 16
+# A warp's carry is N bits in shared memory, and a CTA holds at least one
+# warp's carry and its replica group's packed state: 2 * 32 * ceil(N / 32)
+# words in the 232,448 bytes an H100 block can have.
+MAX_SHARED_BYTES = 232_448
+
+
+def segment_length(M: int, R: int, n_sms: int) -> int:
+    """Slots of one segment of the kernel's scan: a multiple of 4 (the
+    slots of one store) that cuts M into about ``_WARPS_PER_SM * n_sms``
+    segment warps over the ``ceil(R / 32)`` replica groups."""
+    nseg = max(1, _WARPS_PER_SM * n_sms // -(-R // 32))
+    return 4 * -(-M // (4 * nseg))
 
 
 def parity_bits_plain(state, v_idx, tog, vq):
@@ -74,11 +90,14 @@ def parity_bits(state: torch.Tensor, v_idx: torch.Tensor, tog: torch.Tensor,
     _build.check(vq, "vq", torch.int32, (K, M, R), dev)
     if not _build.use_kernel(dev):
         return parity_bits_plain(state, v_idx, tog, vq)
-    if not 1 <= K <= 4:
-        raise ValueError(f"the parity kernel is built for 1 to 4 legs, got {K}")
-    seg_len = 16 * -(-M // (16 * _SEGMENTS))
+    W = -(-N // 32)
+    if 2 * W * 32 * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"N={N}: a CTA of the parity kernel holds 2 * 32 * ceil(N/32) "
+                         f"words in {MAX_SHARED_BYTES} bytes of shared memory")
+    seg_len = segment_length(M, R, _build.sm_count(dev))
     nseg = -(-M // seg_len)
-    seg = torch.empty((max(nseg - 1, 1), -(-N // 32), R), dtype=torch.int32, device=dev)
+    # Rows 0..nseg-1: the segments' prefixes; row nseg: the packed state.
+    seg = torch.empty((nseg + 1, W, R), dtype=torch.int32, device=dev)
     pb = torch.empty((K, M, R), dtype=torch.bool, device=dev)
     sb = torch.empty((K, M, R), dtype=torch.bool, device=dev)
     _build.launch("ising_parity_bits", state, v_idx, tog, vq, seg, pb, sb,

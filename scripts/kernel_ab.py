@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels K1, K3, K3-hb and K4 and the 32x32 SSE sweeps of one
+"""Time kernels K1, K2, K3, K3-hb and K4 and the 32x32 SSE sweeps of one
 checkout of the PyTorch port on one CUDA GPU, for comparing two checkouts
 on one card.
 
@@ -14,6 +14,10 @@ with the host's load. What it measures, each on the card:
 - K1 at L=256, 100 sweeps, J=-1, beta=0.4, R=64 and R=256, with the
   checkout's own launch geometry: device ms per call (``torch.profiler``)
   and ms per call from CUDA events (host included);
+- K2 (``parity_bits``) at K=2, M=7000, R=256, N=1024 on random inputs
+  (distinct legs a slot, 10% sentinels), device ms per call (all of a
+  call's kernels), and its device ms per sweep in the 32x32 Metropolis
+  sweep (by kernel name);
 - K4's ``take0`` on one [7000, 256] grid into an [8000, 256] table, device
   ms, beside ``torch.gather``'s;
 - K3 and K3-hb (``carry_decisions``, ``carry_decisions_heatbath``) at
@@ -51,6 +55,10 @@ import torch
 K4_KERNELS = ("take0_kernel", "hook_min_kernel", "pointer_jump_kernel")
 
 
+# K2's kernels in a profile: this design's three (``parity_segments``,
+# ``parity_prefix``, ``parity_bits``) or the earlier design's two.
+K2_KERNELS = ("parity_", "segment_toggles_kernel")
+
 # The carry kernels' names in a profile: this design's (template argument)
 # or the earlier one's.
 CARRY_KERNELS = {"k3": ("Metropolis", "carry_metropolis_kernel"),
@@ -62,8 +70,8 @@ def device_ms(fn, reps: int, ranges: tuple[str, ...] = ()) -> tuple[float, dict,
     """Device ms per call over ``reps`` calls (after one warm-up), the
     device ms per call of the operators' kernels inside each
     ``record_function`` range named in ``ranges``, the device events per
-    call, the device ms per call of K4's kernels, and that of K3's and
-    K3-hb's (by the keys of CARRY_KERNELS)."""
+    call, the device ms per call of K4's kernels, and that of K2's, K3's
+    and K3-hb's (by the keys of CARRY_KERNELS, and "k2")."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -82,7 +90,7 @@ def device_ms(fn, reps: int, ranges: tuple[str, ...] = ()) -> tuple[float, dict,
                  if e.key in ranges and e.device_type == cpu}
     k4 = sum(e.self_device_time_total for e in dev if any(k in e.key for k in K4_KERNELS))
     carry = {name: sum(e.self_device_time_total for e in dev if any(k in e.key for k in keys))
-             / 1e3 / reps for name, keys in CARRY_KERNELS.items()}
+             / 1e3 / reps for name, keys in {**CARRY_KERNELS, "k2": K2_KERNELS}.items()}
     return (sum(e.self_device_time_total for e in dev) / 1e3 / reps, per_range,
             sum(e.count for e in dev) / reps, k4 / 1e3 / reps, carry)
 
@@ -134,6 +142,17 @@ def main() -> None:
     idx64 = idx.long()
     out["take0_one_grid_device_ms"] = device_ms(lambda: ops.take0(table, idx), 100)[0]
     out["gather_one_grid_device_ms"] = device_ms(lambda: torch.gather(table, 0, idx64), 100)[0]
+
+    # K2 at the 32x32 shape: the two legs of a slot name different variables.
+    K2, M2, N2 = 2, 7000, 1024
+    v0 = rng.integers(0, N2, size=(M2, R))
+    v_idx = np.stack([v0, (v0 + 1 + rng.integers(0, N2 - 1, size=(M2, R))) % N2])
+    v_idx[rng.random((K2, M2, R)) < 0.1] = N2
+    vq = rng.integers(0, N2, size=(K2, M2, R))
+    vq[rng.random((K2, M2, R)) < 0.1] = N2
+    k2_args = (torch.from_numpy(rng.random((R, N2)) < 0.5).to(dev), t(v_idx),
+               torch.from_numpy(rng.random((K2, M2, R)) < 0.3).to(dev), t(vq))
+    out["k2_device_ms"] = device_ms(lambda: ops.parity_bits(*k2_args), 50)[0]
 
     # K3 and K3-hb at the 32x32 shape: n0 near 0.6 M, masks and numerators
     # on the scale of M - n, so both outcomes occur.
@@ -215,6 +234,7 @@ def main() -> None:
     out["sse_device_events_per_sweep"] = n_events
     out["sse_k4_kernels_device_ms_per_sweep"] = k4
     out["sse_k3_device_ms_per_sweep"] = carry["k3"]
+    out["sse_k2_device_ms_per_sweep"] = carry["k2"]
     out["sse_hook_operators_device_ms_per_sweep"] = ranges.get(names[0], 0.0)
     out["sse_flip_gathers_operators_device_ms_per_sweep"] = ranges.get(names[1], 0.0)
     out["sse_label_stage_device_ms_per_sweep"] = k4 + sum(ranges.values())

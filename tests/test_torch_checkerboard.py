@@ -124,7 +124,9 @@ def test_wrapper_on_cpu_is_the_plain_version():
     want = ops.checkerboard_multi_sweep_plain(sp, 11, 0.4, -1.0, 0.3, 5)
     assert torch.equal(got, want) and got.dtype == torch.bool
     assert not torch.equal(got, sp)
+    assert torch.equal(ops.checkerboard_multi_sweep_global(sp, 11, 0.4, -1.0, 0.3, 5), want)
     assert ops.launch_counts()["checkerboard_multi_sweep"] == 0
+    assert ops.launch_counts()["checkerboard_multi_sweep_global"] == 0
 
 
 def test_odd_l_raises():
@@ -135,20 +137,63 @@ def test_odd_l_raises():
         LatticeIsing(5, replicas=2, device="cpu")
 
 
+def _recording_launches(monkeypatch):
+    """Force the kernel path for CPU tensors and record the entry points
+    that would be called; nothing is launched."""
+    names = []
+    for k in (ops.checkerboard_multi_sweep, ops.checkerboard_multi_sweep_global):
+        monkeypatch.setattr(k, "launches", k.launches)  # restored afterwards
+    monkeypatch.setattr(_build, "use_kernel", lambda device: True)
+    monkeypatch.setattr(_build, "launch", lambda name, *args: names.append(name))
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    return names
+
+
 @pytest.mark.parametrize("L", [1362, 1368])
 def test_l_above_shared_memory_raises_before_launch(monkeypatch, L):
-    """The kernel path refuses an L for which no cluster of c <= 8 CTAs with
-    L % c == 0 holds a band of L*L/c bytes (1362: 1362 % 8 != 0; 1368: one
-    eighth is 233,928 bytes) before it launches anything or asks for the
-    card (here with the dispatch forced to the kernel path)."""
-    def no_launch(*args):
-        raise AssertionError("launched")
-
-    monkeypatch.setattr(_build, "use_kernel", lambda device: True)
-    monkeypatch.setattr(_build, "launch", no_launch)
+    """No cluster of c <= 8 CTAs with L % c == 0 holds a band of L*L/c bytes
+    (1362: 1362 % 8 != 0; 1368: one eighth is 233,928 bytes), so asking for
+    a cluster raises before anything is launched or the card is asked, while
+    the default takes K1's global variant (here with the dispatch forced to
+    the kernel path)."""
+    names = _recording_launches(monkeypatch)
+    sp = torch.zeros((1, L, L), dtype=torch.bool)
     with pytest.raises(ValueError, match="shared memory"):
-        ops.checkerboard_multi_sweep(torch.zeros((1, L, L), dtype=torch.bool),
-                                     0, 0.4, -1.0, 0.0, 1)
+        ops.checkerboard_multi_sweep(sp, 0, 0.4, -1.0, 0.0, 1, cluster=8)
+    assert names == []
+    ops.checkerboard_multi_sweep(sp, 0, 0.4, -1.0, 0.0, 1)
+    assert names == ["ising_checkerboard_global"]
+
+
+def _takes_cluster(L):
+    """Where a cluster of c in {1, 2, 4, 8} CTAs (c divides L) holds a band of
+    L*L/c bytes plus the 40-byte table in 232,448 bytes."""
+    return L <= 680 or (L % 4 == 0 and L <= 964) or (L % 8 == 0 and L <= 1360)
+
+
+@pytest.mark.parametrize("R", [1, 2, 64, 256])
+def test_k1_variant_rule(monkeypatch, R):
+    """Over every even L up to 2100: the cluster variant exactly where some
+    cluster size holds the field (then at :func:`cluster_size`'s c, which
+    is one of them), else the global variant, which the dispatch launches."""
+    names = _recording_launches(monkeypatch)
+    for L in range(2, 2101, 2):
+        want = "cluster" if _takes_cluster(L) else "global"
+        assert cb.k1_variant(L) == want, L
+        if want == "cluster":
+            assert cb.cluster_size(R, L, 132) in cb.cluster_sizes(L)
+        else:
+            assert cb.cluster_sizes(L) == []
+            with pytest.raises(ValueError, match="global variant"):
+                cb.cluster_size(R, L, 132)
+    if R > 2:
+        return  # the dispatch below only at few replicas: the fields are large
+    for L, entry in ((682, "ising_checkerboard_global"), (684, "ising_checkerboard"),
+                     (1360, "ising_checkerboard"), (2048, "ising_checkerboard_global")):
+        names.clear()
+        ops.checkerboard_multi_sweep(torch.zeros((R, L, L), dtype=torch.bool), 0, 0.4,
+                                     -1.0, 0.0, 1)
+        assert names == [entry], L
 
 
 @pytest.mark.parametrize("R,L,n_sms,want", [
@@ -170,6 +215,9 @@ def test_cluster_sizes_divide_l_and_fit_shared_memory(monkeypatch):
     assert cb.cluster_sizes(482) == [1, 2]
     assert cb.cluster_sizes(484) == [2, 4]
     assert cb.cluster_sizes(1360) == [8]
+    assert cb.cluster_sizes(1362) == cb.cluster_sizes(2048) == []
+    with pytest.raises(ValueError, match="even L"):
+        cb.cluster_sizes(1361)
     # A cluster size that does not divide L is refused before any launch.
     monkeypatch.setattr(_build, "use_kernel", lambda device: True)
     with pytest.raises(ValueError, match="cluster size"):
@@ -180,7 +228,9 @@ def test_cluster_sizes_divide_l_and_fit_shared_memory(monkeypatch):
 @pytest.mark.cuda
 def test_cuda_kernel_equals_plain_and_refuses_large_l():
     """K1 against its plain version at every cluster size of L=8 and L=6
-    (16-byte and byte paths), at R=64, L=256, and at L=1024 (c=8 only)."""
+    (16-byte and byte paths), at R=64, L=256, and at L=1024 (c=8 only); its
+    global variant at L=6, 8, 10 and 1368 (through the default dispatch);
+    a cluster asked for at L=1368 raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU and nvcc")
     for R, L, nsweeps in ((3, 8, 5), (3, 6, 5), (64, 256, 4), (2, 1024, 2)):
@@ -189,9 +239,16 @@ def test_cuda_kernel_equals_plain_and_refuses_large_l():
         for c in cb.cluster_sizes(L):
             got = ops.checkerboard_multi_sweep(sp, 3, 0.4, -1.0, 0.3, nsweeps, cluster=c)
             assert torch.equal(got, want), (R, L, c)
+    for R, L, nsweeps in ((3, 6, 5), (3, 8, 5), (2, 10, 3), (1, 1368, 2)):
+        sp = torch.rand((R, L, L), device="cuda") < 0.5
+        want = ops.checkerboard_multi_sweep_plain(sp, 3, 0.4, -1.0, 0.3, nsweeps)
+        got = ops.checkerboard_multi_sweep_global(sp, 3, 0.4, -1.0, 0.3, nsweeps)
+        assert torch.equal(got, want), (R, L)
+    assert torch.equal(ops.checkerboard_multi_sweep(sp, 3, 0.4, -1.0, 0.3, nsweeps), want)
     with pytest.raises(ValueError, match="shared memory"):
         ops.checkerboard_multi_sweep(torch.zeros((1, 1368, 1368), dtype=torch.bool,
-                                                 device="cuda"), 0, 0.4, -1.0, 0.0, 1)
+                                                 device="cuda"), 0, 0.4, -1.0, 0.0, 1,
+                                     cluster=8)
 
 
 def _exact_mean_energy(L, beta, j, h):

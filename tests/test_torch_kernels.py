@@ -38,11 +38,15 @@ def test_take0_matches_pallas(C, E, R):
 
 
 def _parity_inputs(rng, K, M, R, N):
-    """Random legs with ~20% sentinels; the two legs of a slot name
-    different variables, as every bond does."""
-    v0 = rng.integers(0, N, size=(M, R))
-    v1 = (v0 + 1 + rng.integers(0, N - 1, size=(M, R))) % N
-    v_idx = np.stack([v0, v1]).astype(np.int32)
+    """Random legs with ~20% sentinels; the K legs of a slot name different
+    variables, as every bond does."""
+    if K == 2:
+        v0 = rng.integers(0, N, size=(M, R))
+        v1 = (v0 + 1 + rng.integers(0, N - 1, size=(M, R))) % N
+        v_idx = np.stack([v0, v1]).astype(np.int32)
+    else:
+        v_idx = np.argsort(rng.random((M, R, N)), axis=-1)[..., :K]
+        v_idx = np.ascontiguousarray(np.moveaxis(v_idx, -1, 0)).astype(np.int32)
     vq = rng.integers(0, N, size=(K, M, R)).astype(np.int32)
     v_idx[rng.random((K, M, R)) < 0.2] = N
     vq[rng.random((K, M, R)) < 0.2] = N + 3
@@ -77,6 +81,96 @@ def test_parity_bits_matches_pallas(M, R, N):
                              torch.from_numpy(tog), torch.from_numpy(vq))
     np.testing.assert_array_equal(pb.numpy(), np.asarray(pb_j))
     np.testing.assert_array_equal(sb.numpy(), np.asarray(sb_j))
+
+
+def _jax_parity(state, v_idx, tog, vq):
+    """The Pallas ``parity_bits`` in interpret mode on the port's inputs:
+    the state packed 16 bits a word, sentinels moved to 16 * W."""
+    R, N = state.shape
+    W = -(-N // 16)
+    sent = 16 * W  # the Pallas kernel's sentinel
+    st_pad = np.zeros((R, sent), np.int64)
+    st_pad[:, :N] = state
+    state_w = (st_pad.reshape(R, W, 16) << np.arange(16)).sum(-1).astype(np.int32)
+    pb, sb = jax_parity(
+        jnp.zeros((R, W), jnp.int32), jnp.asarray(state_w),
+        jnp.asarray(np.where(v_idx >= N, sent, v_idx)), jnp.asarray(tog),
+        jnp.asarray(np.where(vq >= N, sent, vq)), interpret=True,
+    )
+    return np.asarray(pb), np.asarray(sb)
+
+
+@pytest.mark.parametrize("K,M,R,N", [(1, 70, 3, 5), (3, 70, 4, 21), (5, 66, 3, 18)])
+def test_parity_bits_plain_matches_pallas_at_any_k(K, M, R, N):
+    """One leg, three (a plaquette's variables) and five (more than the
+    earlier kernel took): the plain version equals the Pallas kernel."""
+    rng = np.random.default_rng(K * 100 + M)
+    state, v_idx, tog, vq = _parity_inputs(rng, K, M, R, N)
+    pb_j, sb_j = _jax_parity(state, v_idx, tog, vq)
+    pb, sb = ops.parity_bits_plain(torch.from_numpy(state), torch.from_numpy(v_idx),
+                                   torch.from_numpy(tog), torch.from_numpy(vq))
+    np.testing.assert_array_equal(pb.numpy(), pb_j)
+    np.testing.assert_array_equal(sb.numpy(), sb_j)
+
+
+@pytest.mark.parametrize("K", [1, 4, 5, 8])
+def test_parity_kernel_takes_any_k_before_launch(monkeypatch, K):
+    """Where the kernel would run, any K reaches the launch, with a scratch
+    of (segments + 1) N-bit vectors a replica and a segment length that is
+    a multiple of 4 and cuts M into about _WARPS_PER_SM warps an SM; an N whose carry
+    no CTA's shared memory holds raises first. (The wrapper is made to take
+    its kernel branch for CPU tensors; nothing is launched.)"""
+    from isingmontecarlo_tpu_torch.ops import parity_kernel
+
+    calls = []
+    monkeypatch.setattr(ops.parity_bits, "launches", ops.parity_bits.launches)
+    monkeypatch.setattr(_build, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(_build, "launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(_build, "sm_count", lambda dev: 132)
+    M, R, N = 7000, 256, 1024
+    args = [torch.from_numpy(a) for a in _parity_inputs(np.random.default_rng(K), K, 8, 3, 9)]
+    ops.parity_bits(*args)
+    big = (torch.zeros((R, N), dtype=torch.bool), torch.zeros((K, M, R), dtype=torch.int32),
+           torch.zeros((K, M, R), dtype=torch.bool), torch.zeros((K, M, R), dtype=torch.int32))
+    ops.parity_bits(*big)
+    (name, small), (_, full) = calls
+    assert name == "ising_parity_bits" and small[-5:] == (K, 8, 3, 9, 4)
+    seg_len = full[-1]
+    nseg = -(-M // seg_len)
+    assert full[-5:-1] == (K, M, R, N) and seg_len % 4 == 0
+    assert full[4].shape == (nseg + 1, N // 32, R)
+    warps = parity_kernel._WARPS_PER_SM * 132
+    assert 0.85 * warps <= nseg * R // 32 <= warps  # segment warps
+    assert parity_kernel.segment_length(M, R, 132) == seg_len
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.parity_bits(torch.zeros((1, 30000), dtype=torch.bool),
+                        *(torch.zeros((K, 4, 1), dtype=d) for d in
+                          (torch.int32, torch.bool, torch.int32)))
+    assert len(calls) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_parity_bits_equals_plain():
+    """K2 on the card against its plain version at K = 1..6, at ragged
+    shapes (R not a multiple of 4 or 32, M not a multiple of 4, N not a
+    multiple of 32, one segment and many) with sentinels, and at the 32x32
+    shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    for K in range(1, 7):
+        for M, R, N in ((37, 5, 9), (301, 48, 40), (130, 33, 37), (7, 1, 6), (1000, 64, 70)):
+            args = [torch.from_numpy(a).cuda() for a in
+                    _parity_inputs(np.random.default_rng(K * M + R), K, M, R, N)]
+            before = ops.parity_bits.launches
+            got = ops.parity_bits(*args)
+            torch.cuda.synchronize()
+            assert ops.parity_bits.launches == before + 1
+            for g, w in zip(got, ops.parity_bits_plain(*args)):
+                assert torch.equal(g, w), (K, M, R, N)
+    args = [torch.from_numpy(a).cuda() for a in
+            _parity_inputs(np.random.default_rng(0), 2, 7000, 256, 1024)]
+    for g, w in zip(ops.parity_bits(*args), ops.parity_bits_plain(*args)):
+        assert torch.equal(g, w)
 
 
 def test_parity_bits_plain_chunks_thread_the_carry(monkeypatch):
@@ -198,6 +292,7 @@ def test_wrappers_check_inputs_and_devices():
     with pytest.raises(ValueError, match="no kernel"):
         ops.take0(t.to("meta"), t.to("meta"))
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"checkerboard_multi_sweep": 0, "parity_bits": 0,
+    assert ops.launch_counts() == {"checkerboard_multi_sweep": 0,
+                                   "checkerboard_multi_sweep_global": 0, "parity_bits": 0,
                                    "carry_decisions": 0, "carry_decisions_heatbath": 0,
                                    "take0": 0, "hook_min": 0, "pointer_jump": 0}
