@@ -50,6 +50,19 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    replicas=2)`` through K1's global variant, equal to the plain version
    on one call, then its energy per site against Onsager's at beta=0.3;
    the global variant, and not the cluster kernel, must have been launched.
+7. The RVB path: ``QmcIsingGraph`` on the 16x16 benchmark lattice at
+   R=16, beta=10, cutoff hint 14000, grown without RVB, then with
+   ``set_run_rvb(True)`` (128 updates a timestep, the JAX suite's
+   ``two_d_rvb_16`` row): ``verify()`` after every measured timestep, the
+   op count unchanged across every RVB stage, the success rate in (0, 1),
+   and K2, K3 and K4's three entry points launched. Prints ms per
+   timestep and per RVB stage (host clock), host reads per timestep (the
+   synchronising operations PyTorch reports), and under ``torch.profiler``
+   the device ms per timestep split into the RVB stage and the rest, the
+   device events and the busy share; the footprint of the largest RVB
+   tensors here and for ``two_d_rvb_32``. Then a 4-site ring with RVB
+   against exact diagonalization at h = 0 and h = 0.4, and a verify soak
+   on 3x3 and frustrated 4x4 lattices.
 
 Then one JSON line of per-kernel results, a line with the card's name and
 power limit, and last a JSON line with the device. The script needs no
@@ -63,6 +76,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -73,11 +87,13 @@ from isingmontecarlo_tpu_torch.classical import metropolis, worm
 from isingmontecarlo_tpu_torch.ops import _build
 from isingmontecarlo_tpu_torch.ops import checkerboard as cb
 from isingmontecarlo_tpu_torch.ops.diag_carry import tie_heavy_carry_inputs
-from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, multi_sweep
+from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, multi_sweep, tfim_model
 from isingmontecarlo_tpu_torch.sse import diagonal as sse_diagonal
+from isingmontecarlo_tpu_torch.sse import rvb as sse_rvb
 from isingmontecarlo_tpu_torch.sse.cluster import (
     N_COMPRESS, hook_compress_labels, segment_graph,
 )
+from isingmontecarlo_tpu_torch.sse.opstring import op_count
 
 # Kernel shapes of the 32x32 slice at R=256: M ~ 7000 slots, N = 1024 spins,
 # label problems of C ~ 8000 labels and E ~ 7000 edges, whose tables are
@@ -91,6 +107,14 @@ L_CB, R_CB, SWEEPS_CB, BETA_CB = 256, 64, 100, 0.4
 L_BIG, R_BIG, SWEEPS_BIG = 1024, 2, 4
 # K1 beyond every cluster's shared memory: its global-memory variant.
 L_HUGE, R_HUGE, SWEEPS_HUGE = 2048, 2, 4
+
+# The RVB path: the JAX suite's two_d_rvb_16 row (bench.py:443-449, 285):
+# Gamma=1, beta=10, R=16, (N + 1) // 2 = 128 updates a timestep, cutoff
+# hint 14000; grown without RVB, then warm and measured timesteps with it.
+RVB_L, RVB_R, RVB_BETA, RVB_CUTOFF = 16, 16, 10.0, 14000
+RVB_GROW, RVB_WARM, RVB_STEPS = 200, 2, 6
+# The deepest RVB row, two_d_rvb_32 (bench.py:297): footprint only.
+RVB32_L, RVB32_R, RVB32_M = 32, 4, 68000
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for K1's 32-bit integer work.
@@ -171,12 +195,14 @@ def device_ms(fn, reps: int) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
 
 
-def exact_tfim_energy(edges, gamma: float, beta: float, nvars: int) -> float:
-    """<H> of ``sum J sz sz - gamma sum sx`` at ``beta`` by dense ED."""
+def exact_tfim_energy(edges, gamma: float, beta: float, nvars: int,
+                      h: float = 0.0) -> float:
+    """<H> of ``sum J sz sz - gamma sum sx - h sum sz`` at ``beta`` by
+    dense ED (spin true is sz = +1)."""
     dim = 1 << nvars
     idx = np.arange(dim)
     sz = np.where((idx[:, None] >> np.arange(nvars)) & 1, 1.0, -1.0)
-    H = np.diag(sum(j * sz[:, a] * sz[:, b] for (a, b), j in edges))
+    H = np.diag(sum(j * sz[:, a] * sz[:, b] for (a, b), j in edges) - h * sz.sum(axis=1))
     for v in range(nvars):
         H[idx ^ (1 << v), idx] -= gamma
     w = np.linalg.eigvalsh(H)
@@ -786,7 +812,7 @@ def check_recorded_carry(g_met: QmcIsingGraph, g_hb: QmcIsingGraph, bounds: dict
         for name in CARRY:
             setattr(sse_diagonal, name, recorder(name, saved[name]))
         for g in (g_met, g_hb):
-            g.sse, _, _ = multi_sweep(g.sse, 1.0, g.model, 1, lambda: g.draws,
+            g.sse, _, _, _ = multi_sweep(g.sse, 1.0, g.model, 1, lambda: g.draws,
                                       cluster_caps=g._cluster_caps, **g._diag_args())
     finally:
         for name in CARRY:
@@ -849,7 +875,7 @@ def run_slice(dev, heatbath: bool = False, cutoff: int = 6500):
     series, secs = [], 0.0
     for _ in range(nchunks):
         t1 = time.perf_counter()
-        g.sse, ns, _ = multi_sweep(g.sse, beta, g.model, chunk, lambda: g.draws,
+        g.sse, ns, _, _ = multi_sweep(g.sse, beta, g.model, chunk, lambda: g.draws,
                                    cluster_caps=g._cluster_caps, cluster_every=1,
                                    **g._diag_args())
         series.append(ns.cpu().numpy())  # ends with a synchronising copy
@@ -900,7 +926,7 @@ def profile_sweeps(g: QmcIsingGraph, label: str, nsweeps: int = 4) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     def run(n):
-        g.sse, _, _ = multi_sweep(g.sse, 1.0, g.model, n, lambda: g.draws,
+        g.sse, _, _, _ = multi_sweep(g.sse, 1.0, g.model, n, lambda: g.draws,
                                   cluster_caps=g._cluster_caps, **g._diag_args())
 
     # A first profiler session in a process runs slow; one sweep, discarded.
@@ -951,7 +977,7 @@ def time_in_turns(g_met: QmcIsingGraph, g_hb: QmcIsingGraph, chunk: int = 16) ->
                      ("heat-bath", g_hb), ("Metropolis", g_met)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        g.sse, _, _ = multi_sweep(g.sse, 1.0, g.model, chunk, lambda: g.draws,
+        g.sse, _, _, _ = multi_sweep(g.sse, 1.0, g.model, chunk, lambda: g.draws,
                                   cluster_caps=g._cluster_caps, **g._diag_args())
         torch.cuda.synchronize()
         times[label].append(1e3 * (time.perf_counter() - t0) / chunk)
@@ -1122,6 +1148,202 @@ def run_classical_global(dev) -> dict:
     return {"energy_per_site_beta_0.3": float(e.mean())}
 
 
+def count_syncs(fn) -> int:
+    """Runs ``fn()`` and returns the synchronising CUDA operations PyTorch
+    reported in it (``torch.cuda.set_sync_debug_mode``): its host reads."""
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def wrap_rvb_stage(around):
+    """Replaces ``rvb.rvb_sweep``, which the timestep calls, by
+    ``around(inner, *args, **kwargs)``; returns the restoring function."""
+    inner = sse_rvb.rvb_sweep
+    sse_rvb.rvb_sweep = lambda *a, **k: around(inner, *a, **k)
+
+    def restore():
+        sse_rvb.rvb_sweep = inner
+    return restore
+
+
+def profile_timesteps(g: QmcIsingGraph, nsteps: int) -> tuple[dict, list]:
+    """Wall and device ms and device events per timestep of ``g`` over
+    ``nsteps`` timesteps under ``torch.profiler``, after a discarded
+    one-step session; and the device rows, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        g.timestep(RVB_BETA)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(nsteps):
+            g.timestep(RVB_BETA)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": 1e3 * wall / nsteps,
+            "device_ms": sum(e.self_device_time_total for e in rows) / 1e3 / nsteps,
+            "events": sum(e.count for e in rows) / nsteps}, rows
+
+
+def profile_rvb(g: QmcIsingGraph, nsteps: int = 2) -> dict:
+    """Phase 7: device ms and events per timestep under ``torch.profiler``
+    with RVB and, on the same graph, without it (the rest of the
+    timestep); the RVB stage is the difference. Busy share: device time
+    over the profiled wall time."""
+    on, rows = profile_timesteps(g, nsteps)
+    g.set_run_rvb(False)
+    off, _ = profile_timesteps(g, nsteps)
+    g.set_run_rvb(True)
+    out = {"wall_ms_per_timestep_profiled": on["wall_ms"],
+           "device_ms_per_timestep": on["device_ms"],
+           "rvb_device_ms": on["device_ms"] - off["device_ms"], "rest_device_ms": off["device_ms"],
+           "device_events_per_timestep": on["events"],
+           "rvb_device_events": on["events"] - off["events"],
+           "busy_share": on["device_ms"] / on["wall_ms"],
+           "busy_share_without_rvb": off["device_ms"] / off["wall_ms"]}
+    print("RVB timestep under the profiler: " + json.dumps(out) + "; largest device "
+          "items, ms per timestep (calls):", flush=True)
+    for e in rows[:16]:
+        print(f"  {e.self_device_time_total / 1e3 / nsteps:.4f} ({e.count / nsteps:g})  "
+              f"{e.key[:100]}", flush=True)
+    return out
+
+
+def run_rvb(dev) -> tuple[dict, dict]:
+    """Phase 7 (a) and (b): the two_d_rvb_16 row at full width. Returns the
+    printed results and the kernel launches of the measured timesteps."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g = QmcIsingGraph(lattice.bench_two_d_periodic(RVB_L), 1.0, cutoff=RVB_CUTOFF,
+                      replicas=RVB_R, seed=7, device=dev)
+    g.timesteps(RVB_GROW, RVB_BETA)  # grow the string without RVB
+    g.set_run_rvb(True)
+    U = g._rvb_updates
+    if U != (g.nvars + 1) // 2 or g.nvars != RVB_L * RVB_L:
+        raise AssertionError(f"RVB updates a timestep {U}, N {g.nvars}")
+    for _ in range(RVB_WARM):
+        g.timestep(RVB_BETA)
+    torch.cuda.synchronize()
+    n = g.get_n()
+    print(f"two_d_rvb_16: N={g.nvars}, R={RVB_R}, U={U}, beta={RVB_BETA}: grown and warm in "
+          f"{time.perf_counter() - t0:.1f} s, cutoff {g.cutoff}, RVB compaction cutoff "
+          f"{g._rvb_compact}, mean n {float(n.float().mean()):.1f}, max n {int(n.max())}",
+          flush=True)
+
+    stages = []
+
+    def timed(inner, ops, *a, **k):
+        n0 = op_count(ops)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = inner(ops, *a, **k)
+        torch.cuda.synchronize()
+        stages.append((time.perf_counter() - t1, n0, op_count(out[0])))
+        return out
+
+    walls = []
+    ops.reset_launch_counts()
+    restore = wrap_rvb_stage(timed)
+    try:
+        for _ in range(RVB_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            g.timestep(RVB_BETA)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            if not g.verify():
+                raise AssertionError("verify() failed after an RVB timestep")
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if len(stages) != RVB_STEPS:
+        raise AssertionError(f"{len(stages)} RVB stages in {RVB_STEPS} timesteps")
+    for _, n0, n1 in stages:
+        if not torch.equal(n0, n1):
+            raise AssertionError("an RVB stage changed the op count")
+    rate = g.rvb_success_rate()
+    if not 0.0 < rate < 1.0:
+        raise AssertionError(f"RVB success rate {rate} is not in (0, 1)")
+
+    # Host reads of one timestep: those of the RVB stage, counted apart,
+    # and the rest.
+    rvb_reads, result = [], []
+
+    def counted(inner, *a, **k):
+        rvb_reads.append(count_syncs(lambda: result.append(inner(*a, **k))))
+        return result[-1]
+
+    restore = wrap_rvb_stage(counted)
+    try:
+        reads = count_syncs(lambda: g.timestep(RVB_BETA)) + rvb_reads[-1]
+    finally:
+        restore()
+    prof = profile_rvb(g)
+    if not g.verify():
+        raise AssertionError("verify() failed after the profiled RVB timesteps")
+    out = {
+        "ms_per_timestep": 1e3 * float(np.mean(walls)),
+        "ms_per_timestep_each": [1e3 * w for w in walls],
+        "ms_per_rvb_stage": 1e3 * float(np.mean([s[0] for s in stages])),
+        "host_reads_per_timestep": reads, "host_reads_in_rvb_stage": rvb_reads[-1],
+        "rvb_success_rate": rate, "cutoff": g.cutoff, "rvb_compact": g._rvb_compact,
+        "mean_n": float(g.get_n().float().mean()),
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(), **prof,
+    }
+    print("two_d_rvb_16: " + json.dumps(out), flush=True)
+    M = g._rvb_compact or g.cutoff
+    foot16 = sse_rvb.rvb_footprint(M, RVB_R, g.nvars, g._rvb_tables, U)
+    edges32 = lattice.bench_two_d_periodic(RVB32_L)
+    t32 = sse_rvb.make_rvb_tables(edges32, tfim_model(edges32, 1.0, device=dev))
+    n32 = RVB32_L * RVB32_L
+    foot32 = sse_rvb.rvb_footprint(RVB32_M, RVB32_R, n32, t32, (n32 + 1) // 2)
+    print(f"largest RVB tensors, bytes: two_d_rvb_16 {json.dumps(foot16)}; "
+          f"two_d_rvb_32 (not run) {json.dumps(foot32)}", flush=True)
+    return out, counts
+
+
+def check_rvb_physics(dev) -> None:
+    """Phase 7 (c) and (d): a 4-site ring with RVB against ED, and the
+    verify soak (the JAX package's tests/test_rvb.py:20-97)."""
+    edges = lattice.chain(4, j=1.0)
+    beta = 1.5
+    for h, seed in ((0.0, 11), (0.4, 13)):
+        g = QmcIsingGraph(edges, 1.0, longitudinal=h, cutoff=96, replicas=128, seed=seed,
+                          device=dev)
+        g.set_run_rvb(True, updates_per_timestep=2)
+        g.timesteps(48, beta, chunk=48)
+        e = g.timesteps(192, beta, chunk=48).cpu().numpy()
+        exact = exact_tfim_energy(edges, 1.0, beta, 4, h=h)
+        se = e.std() / np.sqrt(len(e))
+        print(f"4-site ring with RVB, h={h}, beta={beta}, R=128: E = {e.mean():.5f} +- "
+              f"{se:.5f} (ED {exact:.5f}, {abs(e.mean() - exact) / se:.2f} SE), success "
+              f"rate {g.rvb_success_rate():.4f}", flush=True)
+        if not np.all(np.isfinite(e)) or abs(e.mean() - exact) >= 5 * se or not g.verify():
+            raise AssertionError(f"the RVB ring at h={h} is not within 5 SE of ED")
+    for edges, gamma, seed in ((lattice.square(3, 3, j=1.0), 1.0, 0),
+                               (lattice.frustrated_square(4, 4, j=1.0), 2.0, 3)):
+        g = QmcIsingGraph(edges, gamma, replicas=16, seed=seed, device=dev)
+        g.set_run_rvb(True, updates_per_timestep=5)
+        for _ in range(8):
+            g.timestep(1.0)
+            if not g.verify():
+                raise AssertionError("verify() failed in the RVB soak")
+    print("RVB verify soak: 3x3 and frustrated 4x4, 8 timesteps each, verify() true",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1200,6 +1422,13 @@ def main() -> None:
         raise AssertionError(f"the 2048^2 lattice did not run through K1's global variant "
                              f"alone: {counts}")
     launches["checkerboard_multi_sweep_global"] = counts["checkerboard_multi_sweep_global"]
+
+    phase("7. RVB path: two_d_rvb_16 (16x16 benchmark lattice, beta=10, R=16, U=128)")
+    _, counts = run_rvb(dev)
+    print(f"kernel launches in the measured RVB timesteps: {counts}", flush=True)
+    if min(counts[k] for k in sse_kernels) <= 0:
+        raise AssertionError(f"a kernel of the RVB path was not launched: {counts}")
+    check_rvb_physics(dev)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -12,6 +12,7 @@ from isingmontecarlo_tpu_torch.sse.diagonal import HeatBathTables
 from isingmontecarlo_tpu_torch.sse.ising import SseState
 from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import OpString
+from isingmontecarlo_tpu_torch.sse.rvb import RvbTables
 
 
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -54,6 +55,15 @@ def heatbath_tables_from_numpy(cum_max_w, total,
     (``torch.cumsum`` may round non-integer weights otherwise)."""
     return HeatBathTables(cum_max_w=_t(cum_max_w, torch.float32, device),
                           total=_t(total, torch.float32, device))
+
+
+def rvb_tables_from_numpy(neigh_bond, neigh_var, bond_mag, nedges: int,
+                          device: torch.device | str) -> RvbTables:
+    """:class:`RvbTables` from the JAX ``RvbTables``' arrays and
+    ``nedges``."""
+    return RvbTables(neigh_bond=_t(neigh_bond, torch.int32, device),
+                     neigh_var=_t(neigh_var, torch.int32, device),
+                     bond_mag=_t(bond_mag, torch.float32, device), nedges=int(nedges))
 
 
 # The port's GraphTables from the JAX GraphTables' fields (numpy arrays and

@@ -1,8 +1,9 @@
 """Stochastic series expansion QMC for the transverse-field Ising model
 (port of ``isingmontecarlo_tpu.sse``: the Metropolis and heat-bath diagonal
-updates, the cluster update and the ``QmcIsingGraph`` stepping API)."""
+updates, the RVB update, the cluster update and the ``QmcIsingGraph``
+stepping API)."""
 
-from isingmontecarlo_tpu_torch.sse import cluster, debug, diagonal, opstring
+from isingmontecarlo_tpu_torch.sse import cluster, debug, diagonal, opstring, rvb
 from isingmontecarlo_tpu_torch.sse.cluster import (
     cluster_update, cluster_update_impl, segment_graph,
 )
@@ -23,15 +24,21 @@ from isingmontecarlo_tpu_torch.sse.ising import (
 )
 from isingmontecarlo_tpu_torch.sse.model import BondModel, tfim_model
 from isingmontecarlo_tpu_torch.sse.opstring import OpString
+from isingmontecarlo_tpu_torch.sse.rvb import (
+    GeneratorRvbDraws, RvbDraws, RvbTables, make_rvb_tables, rvb_sweep,
+)
 
 __all__ = [
     "BondModel",
     "Draws",
     "GeneratorDraws",
+    "GeneratorRvbDraws",
     "HamInfo",
     "HeatBathTables",
     "OpString",
     "QmcIsingGraph",
+    "RvbDraws",
+    "RvbTables",
     "SseState",
     "cluster",
     "cluster_update",
@@ -40,11 +47,14 @@ __all__ = [
     "diagonal",
     "diagonal_update",
     "make_heatbath_tables",
+    "make_rvb_tables",
     "multi_sweep",
     "new_qmc",
     "new_qmc_from_graph",
     "opstring",
     "resample_free_spins",
+    "rvb",
+    "rvb_sweep",
     "segment_graph",
     "sweep",
     "tfim_model",

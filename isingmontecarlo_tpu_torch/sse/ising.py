@@ -6,9 +6,10 @@ reference ``QmcIsingGraph``, ``src/sse/qmc_ising.rs:28-46, 644-795``).
 A timestep (``qmc_ising.rs:644-795``):
 
 1. diagonal sweep (Metropolis, or heat-bath when enabled);
-2. cluster update (weighted when ``h != 0``);
-3. resample spins that carry no op;
-4. grow the cutoff ``M = max(M, n + n/2)`` (on the host, between chunks).
+2. RVB updates, when enabled (``sse/rvb.py``);
+3. cluster update (weighted when ``h != 0``);
+4. resample spins that carry no op;
+5. grow the cutoff ``M = max(M, n + n/2)`` (on the host, between chunks).
 
 Randomness enters only through a :class:`Draws` object asked for each
 update's uniforms by shape, in the shapes the JAX package draws; the
@@ -30,6 +31,7 @@ from isingmontecarlo_tpu_torch.lattice import Edge, edge_arrays, nvars_from_edge
 from isingmontecarlo_tpu_torch.sse import cluster as _cluster
 from isingmontecarlo_tpu_torch.sse import debug as _debug
 from isingmontecarlo_tpu_torch.sse import opstring as _ops
+from isingmontecarlo_tpu_torch.sse import rvb as _rvb
 from isingmontecarlo_tpu_torch.sse.diagonal import (
     HeatBathTables, diagonal_update, make_heatbath_tables,
 )
@@ -74,6 +76,9 @@ class Draws(Protocol):
     def free_spins(self, shape: tuple[int, int]) -> torch.Tensor:
         """Fair coin flips ``bool[R, N]`` for spins that carry no op."""
 
+    def rvb(self, n_updates: int) -> _rvb.RvbDraws:
+        """The draws of the timestep's RVB sweep of ``n_updates`` updates."""
+
 
 class GeneratorDraws:
     """:class:`Draws` from a ``torch.Generator`` on one device."""
@@ -94,6 +99,9 @@ class GeneratorDraws:
     def free_spins(self, shape):
         return self._uniform(shape) < 0.5
 
+    def rvb(self, n_updates):
+        return _rvb.GeneratorRvbDraws(self.generator)
+
 
 def resample_free_spins(sse: SseState, fresh: torch.Tensor, model: BondModel,
                         has_op: torch.Tensor | None = None) -> SseState:
@@ -112,20 +120,33 @@ def resample_free_spins(sse: SseState, fresh: torch.Tensor, model: BondModel,
 def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
           cluster_caps: tuple[int, int] | None = None,
           do_cluster: bool = True, hb: HeatBathTables | None = None,
-          heatbath: bool = False, bond_scale: torch.Tensor | None = None) -> SseState:
-    """One timestep (``qmc_ising.rs:644-795`` minus cutoff growth).
+          heatbath: bool = False, bond_scale: torch.Tensor | None = None,
+          rvb_tables: _rvb.RvbTables | None = None, n_rvb: int = 0,
+          rvb_compact: int | None = None) -> tuple[SseState, torch.Tensor]:
+    """One timestep (``qmc_ising.rs:644-795`` minus cutoff growth). Returns
+    ``(state, rvb_successes i32[R])``, zeros when RVB is off.
 
     ``do_cluster=False`` skips the cluster update and free-spin resample
     (``multi_sweep``'s ``cluster_every`` thinning). ``cluster_caps`` are the
     host-tracked ``(label_cap, edge_cap)`` of the cluster label problem;
     without them the cluster update labels at full size, never skipped.
-    ``hb``, ``heatbath`` and ``bond_scale`` go to :func:`diagonal_update`."""
+    ``hb``, ``heatbath`` and ``bond_scale`` go to :func:`diagonal_update`.
+    ``n_rvb > 0`` runs that many RVB updates after the diagonal update,
+    on the occupied-slot prefix of ``rvb_compact`` rows when given
+    (:func:`rvb.rvb_sweep`)."""
+    if n_rvb > 0 and rvb_tables is None:
+        raise ValueError("RVB updates need rvb_tables (rvb.make_rvb_tables)")
     ops, state = sse
     M, R = ops.bond.shape
     ops = diagonal_update(ops, state, beta, draws.diagonal((3, M, R)), model,
                           hb=hb, heatbath=heatbath, bond_scale=bond_scale)
+    if n_rvb > 0:
+        ops, state, succ = _rvb.rvb_sweep(ops, state, draws.rvb(n_rvb), model,
+                                          rvb_tables, n_rvb, compact_cutoff=rvb_compact)
+    else:
+        succ = torch.zeros((R,), dtype=torch.int32, device=state.device)
     if not do_cluster:
-        return SseState(ops, state)
+        return SseState(ops, state), succ
     if cluster_caps is not None:
         lc, ec = cluster_caps
     else:
@@ -141,7 +162,7 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
     return resample_free_spins(
         SseState(ops, state), draws.free_spins((R, model.nvars)), model,
         has_op=has_op,
-    )
+    ), succ
 
 
 def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
@@ -149,21 +170,29 @@ def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
                 cluster_caps: tuple[int, int] | None = None,
                 cluster_every: int = 1, collect_states: bool = False,
                 hb: HeatBathTables | None = None, heatbath: bool = False,
-                bond_scale: torch.Tensor | None = None):
+                bond_scale: torch.Tensor | None = None,
+                rvb_tables: _rvb.RvbTables | None = None, n_rvb: int = 0,
+                rvb_compact: int | None = None):
     """``nsweeps`` timesteps; ``next_draws()`` gives each one's draws.
 
     The cluster update runs on every ``cluster_every``-th timestep only
     (``k = 1`` is the reference composition). Returns ``(sse, ns i32[T, R],
-    states bool[T, R, N] or None)``, ``ns`` the op count after each step."""
+    states bool[T, R, N] or None, rvb_successes i32[R])``, ``ns`` the op
+    count after each step and the successes summed over the steps."""
     ns, states = [], []
+    succ = torch.zeros((sse.state.shape[0],), dtype=torch.int32, device=sse.state.device)
     for i in range(nsweeps):
-        sse = sweep(sse, beta, model, next_draws(), cluster_caps=cluster_caps,
-                    do_cluster=i % cluster_every == cluster_every - 1,
-                    hb=hb, heatbath=heatbath, bond_scale=bond_scale)
+        sse, s = sweep(sse, beta, model, next_draws(), cluster_caps=cluster_caps,
+                       do_cluster=i % cluster_every == cluster_every - 1,
+                       hb=hb, heatbath=heatbath, bond_scale=bond_scale,
+                       rvb_tables=rvb_tables, n_rvb=n_rvb, rvb_compact=rvb_compact)
+        if n_rvb > 0:
+            succ += s
         ns.append(_ops.op_count(sse.ops))
         if collect_states:
             states.append(sse.state)
-    return sse, torch.stack(ns), torch.stack(states) if collect_states else None
+    return (sse, torch.stack(ns), torch.stack(states) if collect_states else None,
+            succ)
 
 
 def cap_counts(ops: _ops.OpString, model: BondModel):
@@ -174,6 +203,18 @@ def cap_counts(ops: _ops.OpString, model: BondModel):
     n_const = (model.is_constant[b] & occ).sum(dim=0)
     n_multi = (occ & (model.arity()[b] >= 2)).sum(dim=0)
     return n_const.max(), n_multi.max()
+
+
+def rvb_compact_cutoff(n_max: int, current: int | None, cutoff: int) -> int | None:
+    """The RVB sweeps' compaction cutoff after a refresh
+    (``isingmontecarlo_tpu/sse/ising.py:770-784``): the largest op count
+    ``n_max`` with 25% slack, 16-quantized; grown on demand, shrunk only
+    past 2x; ``None`` (the full string) unless it cuts at least an eighth
+    of the ``cutoff`` slots."""
+    want = 16 * ((n_max + (n_max >> 2) + 2 + 15) // 16)
+    if current is None or want > current or want * 2 < current:
+        current = want
+    return current if current <= cutoff - (cutoff >> 3) else None
 
 
 def new_qmc(edges, transverse, longitudinal=0.0, cutoff=None, *, replicas=1,
@@ -218,6 +259,16 @@ class QmcIsingGraph:
             torch.Generator(device=self.device).manual_seed(seed))
         self._heatbath = False
         self._hb_tables: HeatBathTables | None = None
+        self._run_rvb = False
+        self._rvb_tables: _rvb.RvbTables | None = None
+        self._rvb_updates: int | None = None
+        # Host-tracked occupied-slot compaction cutoff of the RVB sweeps
+        # (None: the full string), refreshed with hysteresis in _maybe_grow.
+        self._rvb_compact: int | None = None
+        # RVB successes summed on the device (read by total_rvb_successes),
+        # and the updates attempted.
+        self._rvb_successes = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.rvb_clusters_counted = 0
         # Cold start: the cutoff has not tracked n + n/2 yet, so stepping
         # begins with single timesteps (see timesteps_measure); the
         # no-growth streak persists across calls.
@@ -296,6 +347,18 @@ class QmcIsingGraph:
         if enable and self._hb_tables is None:
             self._hb_tables = make_heatbath_tables(self.model)
 
+    def set_run_rvb(self, run: bool, updates_per_timestep: int | None = None) -> None:
+        """Run RVB updates in every timestep (``qmc_ising.rs:435-441``): the
+        reference's ``(nvars + 1) / 2`` a timestep (``qmc_ising.rs:709-710``),
+        or ``updates_per_timestep``."""
+        self._run_rvb = bool(run)
+        if updates_per_timestep is not None:
+            self._rvb_updates = updates_per_timestep
+        elif self._rvb_updates is None:
+            self._rvb_updates = (self.nvars + 1) // 2
+        if run and self._rvb_tables is None:
+            self._rvb_tables = _rvb.make_rvb_tables(self.edges, self.model)
+
     def set_cluster_every(self, k: int) -> None:
         """Run the cluster update and free-spin resample on every ``k``-th
         timestep of a chunk (``k = 1``, the default, is the reference
@@ -307,6 +370,23 @@ class QmcIsingGraph:
     def _diag_args(self) -> dict:
         return dict(hb=self._hb_tables if self._heatbath else None,
                     heatbath=self._heatbath)
+
+    def _rvb_args(self) -> dict:
+        """The RVB keyword arguments of a sweep from the graph's settings."""
+        if not self._run_rvb:
+            return {}
+        return dict(rvb_tables=self._rvb_tables, n_rvb=self._rvb_updates or 0,
+                    rvb_compact=self._rvb_compact)
+
+    def _count_rvb(self, succ: torch.Tensor, nsweeps: int) -> None:
+        if self._run_rvb:
+            self._rvb_successes += succ.sum()
+            self.rvb_clusters_counted += (self._rvb_updates or 0) * self.replicas * nsweeps
+
+    @property
+    def total_rvb_successes(self) -> int:
+        """Accepted RVB updates over all replicas so far (one host read)."""
+        return int(self._rvb_successes)
 
     # -- accessors ---------------------------------------------------------
 
@@ -478,15 +558,36 @@ class QmcIsingGraph:
                                              label_cap=lc, edge_cap=ec)
         self.sse = SseState(ops, state)
 
+    def single_rvb_sweep(self, updates_in_sweep: int | None = None) -> tuple[int, int]:
+        """RVB updates only (``qmc_ising.rs:323-418``), on the full string.
+        Returns ``(successes summed over replicas, updates attempted)``."""
+        if self._rvb_tables is None:
+            self._rvb_tables = _rvb.make_rvb_tables(self.edges, self.model)
+        n = updates_in_sweep or (self.nvars + 1) // 2
+        ops, state, succ = _rvb.rvb_sweep(self.sse.ops, self.sse.state, self.draws.rvb(n),
+                                          self.model, self._rvb_tables, n)
+        self.sse = SseState(ops, state)
+        succs = succ.sum()
+        self._rvb_successes += succs
+        counted = n * self.replicas
+        self.rvb_clusters_counted += counted
+        return int(succs), counted
+
+    def rvb_success_rate(self) -> float:
+        """``qmc_ising.rs:605-607``."""
+        return self.total_rvb_successes / max(self.rvb_clusters_counted, 1)
+
     def _maybe_grow(self) -> None:
         """Cutoff growth ``M = max(M, n + n/2)`` (``qmc_ising.rs:786``),
         quantized to multiples of 16, and a refresh of the cluster label
-        caps. Two host reads."""
+        caps and of the RVB compaction cutoff. Two host reads."""
         n_max = int(_ops.op_count(self.sse.ops).max())
         want = n_max + n_max // 2
         if want > self.cutoff:
             new_m = ((want + 15) // 16) * 16
             self.sse = self.sse._replace(ops=_ops.grow(self.sse.ops, new_m))
+        if self._run_rvb:
+            self._rvb_compact = rvb_compact_cutoff(n_max, self._rvb_compact, self.cutoff)
         nc, nm = (int(x) for x in torch.stack(cap_counts(self.sse.ops, self.model)).tolist())
         N = self.nvars
         want_l = max(256, 16 * ((int((nc + N + 2) * 1.3) + 15) // 16))
@@ -497,8 +598,10 @@ class QmcIsingGraph:
 
     def timestep(self, beta: float) -> torch.Tensor:
         """One timestep; returns the state (``qmc_ising.rs:644-795``)."""
-        self.sse = sweep(self.sse, beta, self.model, self.draws,
-                         cluster_caps=self._cluster_caps, **self._diag_args())
+        self.sse, succ = sweep(self.sse, beta, self.model, self.draws,
+                               cluster_caps=self._cluster_caps, **self._diag_args(),
+                               **self._rvb_args())
+        self._count_rvb(succ, 1)
         self._maybe_grow()
         return self.sse.state
 
@@ -578,12 +681,13 @@ class QmcIsingGraph:
             # growing, then chunks, checked between chunks.
             todo = 1 if stable < 2 else min(chunk, timesteps - done)
             collect = any((done + i + 1) % freq == 0 for i in range(todo))
-            self.sse, ns, states = multi_sweep(
+            self.sse, ns, states, succ = multi_sweep(
                 self.sse, beta, self.model, todo, lambda: self.draws,
                 cluster_caps=self._cluster_caps,
                 cluster_every=self._cluster_every if todo > 1 else 1,
-                collect_states=collect, **self._diag_args(),
+                collect_states=collect, **self._diag_args(), **self._rvb_args(),
             )
+            self._count_rvb(succ, todo)
             for i in range(todo):
                 if (done + i + 1) % freq == 0:
                     if states is not None:

@@ -196,9 +196,12 @@ def main() -> None:
     g.timesteps(48, 1.0)
 
     def sweeps(n):
-        g.sse, ns, _ = multi_sweep(g.sse, 1.0, g.model, n, lambda: g.draws,
-                                   cluster_caps=g._cluster_caps, **g._diag_args())
-        return ns
+        # The checkout's multi_sweep returns (sse, ns, states) or, with RVB,
+        # (sse, ns, states, successes).
+        out = multi_sweep(g.sse, 1.0, g.model, n, lambda: g.draws,
+                          cluster_caps=g._cluster_caps, **g._diag_args())
+        g.sse = out[0]
+        return out[1]
 
     sweeps(16).cpu()
     torch.cuda.synchronize()

@@ -235,7 +235,7 @@ def test_heatbath_multi_sweep_matches_jax():
                                             heatbath=True)
     hb_t = convert.heatbath_tables_from_numpy(np.asarray(hbt.cum_max_w),
                                               np.asarray(hbt.total), "cpu")
-    sse_t, ns_t, _ = tising.multi_sweep(torch_sse(sse_j.ops, state), 1.0, torch_model(jm),
+    sse_t, ns_t, _, _ = tising.multi_sweep(torch_sse(sse_j.ops, state), 1.0, torch_model(jm),
                                         4, JaxKeyDraws(sse_j.key).next, hb=hb_t,
                                         heatbath=True)
     assert_ops_equal(sse_t.ops, sse_j2.ops)

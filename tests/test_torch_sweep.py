@@ -42,8 +42,9 @@ def test_chained_sweeps_match_jax(cutoff, caps):
     src = JaxKeyDraws(sse_j.key)
     for _ in range(3):
         sse_j, _ = jising.sweep(sse_j, jnp.float32(1.0), g.model, cluster_caps=caps)
-        sse_t = tising.sweep(sse_t, 1.0, tm, src.next(), cluster_caps=caps)
+        sse_t, succ = tising.sweep(sse_t, 1.0, tm, src.next(), cluster_caps=caps)
         _assert_state_equal(sse_t, sse_j)
+        assert not succ.any()  # RVB off
     assert bool(np.asarray(jops.verify(sse_j.ops, sse_j.state, g.model)).all())
 
 
@@ -52,11 +53,11 @@ def test_thinned_multi_sweep_matches_jax():
                   beta=1.5, nsweeps=4, cutoff=64)
     g._maybe_grow()
     caps = g._cluster_caps
-    sse_j, ns_j, states_j, _ = jising.multi_sweep(
+    sse_j, ns_j, states_j, succ_j = jising.multi_sweep(
         g.sse, jnp.float32(1.5), g.model, 5, cluster_caps=caps,
         cluster_every=2, collect_states=True,
     )
-    sse_t, ns_t, states_t = tising.multi_sweep(
+    sse_t, ns_t, states_t, succ_t = tising.multi_sweep(
         torch_sse(g.sse.ops, g.sse.state), 1.5, torch_model(g.model), 5,
         JaxKeyDraws(g.sse.key).next, cluster_caps=caps, cluster_every=2,
         collect_states=True,
@@ -64,6 +65,7 @@ def test_thinned_multi_sweep_matches_jax():
     _assert_state_equal(sse_t, sse_j)
     np.testing.assert_array_equal(np_(ns_t), np.asarray(ns_j))
     np.testing.assert_array_equal(np_(states_t), np.asarray(states_j))
+    np.testing.assert_array_equal(np_(succ_t), np.asarray(succ_j))
 
 
 def test_resample_free_spins_matches_jax():

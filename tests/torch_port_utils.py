@@ -59,13 +59,59 @@ def assert_ops_equal(a, b) -> None:
                                       err_msg=name)
 
 
+class JaxRvbDraws:
+    """``rvb_sweep``'s draws replayed from its key as port tensors: one key
+    per update (``rvb.py:1534``), split into build, accept and mutation
+    keys (``:1344``); the build key into seed, size and pop keys
+    (``:260``), the pop key split once per pop (``:298``); the mutation
+    key's Gumbels one-shot (``:1153``) or folded in per chunk (``:1262``)."""
+
+    def __init__(self, key, n_updates: int):
+        self.n = n_updates
+        ks = jax.random.split(key, n_updates)
+        self.k_build, self.k_acc, self.k_mut = zip(*(jax.random.split(k, 3) for k in ks))
+        self.k_seed, self.k_size, k_pops = zip(*(jax.random.split(k, 3) for k in self.k_build))
+        self.k_pop = []  # [u][i]
+        for k in k_pops:
+            chain = []
+            for _ in range(16):
+                k, k_g = jax.random.split(k)
+                chain.append(k_g)
+            self.k_pop.append(chain)
+
+    def _rows(self, u0, shape, draw):
+        return t_(np.stack([np.asarray(draw(u)) for u in range(u0, u0 + shape[0])]))
+
+    def seed(self, u0, shape):
+        return self._rows(u0, shape, lambda u: jax.random.uniform(self.k_seed[u], shape[1:]))
+
+    def size(self, u0, shape):
+        return self._rows(u0, shape, lambda u: jax.random.uniform(
+            self.k_size[u], shape[1:], minval=1e-9, maxval=1.0))
+
+    def pop(self, u0, i, shape):
+        return self._rows(u0, shape, lambda u: jax.random.gumbel(self.k_pop[u][i], shape[1:]))
+
+    def accept(self, u0, shape):
+        return self._rows(u0, shape, lambda u: jax.random.uniform(self.k_acc[u], shape[1:]))
+
+    def rotation(self, u, chunk, shape):
+        k = self.k_mut[u] if chunk is None else jax.random.fold_in(self.k_mut[u], chunk)
+        return t_(jax.random.gumbel(k, shape))
+
+
 class JaxSweepDraws:
     """One JAX timestep's draws (``ising.py:146``, ``diagonal.py:558``,
-    ``cluster.py:654, 720``, ``ising.py:87``) as port tensors."""
+    ``rvb.py:1534``, ``cluster.py:654, 720``, ``ising.py:87``) as port
+    tensors."""
 
-    def __init__(self, k_diag, k_clust, k_free):
+    def __init__(self, k_diag, k_clust, k_free, k_rvb=None):
         self.k_diag, self.k_clust, self.k_free = k_diag, k_clust, k_free
+        self.k_rvb = k_rvb
         self.cluster_shapes = []
+
+    def rvb(self, n_updates):
+        return JaxRvbDraws(self.k_rvb, n_updates)
 
     def diagonal(self, shape):
         return t_(jax.random.uniform(self.k_diag, shape))
@@ -87,8 +133,8 @@ class JaxKeyDraws:
         self.key = key
 
     def next(self) -> JaxSweepDraws:
-        self.key, k_diag, _k_rvb, k_clust, k_free = jax.random.split(self.key, 5)
-        return JaxSweepDraws(k_diag, k_clust, k_free)
+        self.key, k_diag, k_rvb, k_clust, k_free = jax.random.split(self.key, 5)
+        return JaxSweepDraws(k_diag, k_clust, k_free, k_rvb)
 
 
 class JaxChainDraws:
@@ -109,6 +155,9 @@ class JaxChainDraws:
     def free_spins(self, shape):
         return self.cur.free_spins(shape)
 
+    def rvb(self, n_updates):
+        return self.cur.rvb(n_updates)
+
 
 def port_chain_state(edges, *, transverse=1.0, longitudinal=0.0, replicas=8,
                      seed=3, beta=1.0, nsweeps=10):
@@ -123,6 +172,13 @@ def port_chain_state(edges, *, transverse=1.0, longitudinal=0.0, replicas=8,
         g.timestep(beta)
     ops = g.sse.ops
     return tuple(np_(a) for a in (ops.bond, ops.inputs, ops.outputs, g.sse.state))
+
+
+def torch_rvb_tables(jt):
+    """The port's RvbTables from a JAX RvbTables, on the CPU."""
+    return convert.rvb_tables_from_numpy(
+        np.asarray(jt.neigh_bond), np.asarray(jt.neigh_var), np.asarray(jt.bond_mag),
+        jt.nedges, device="cpu")
 
 
 def jax_opstring(bond, inputs, outputs):
