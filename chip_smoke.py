@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SSE timestep and classical engine on one CUDA
-GPU and check them.
+"""Drive the PyTorch port's SSE timestep, its generic engine and its
+classical engine on one CUDA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -63,6 +63,25 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    tensors here and for ``two_d_rvb_32``. Then a 4-site ring with RVB
    against exact diagonalization at h = 0 and h = 0.4, and a verify soak
    on 3x3 and frustrated 4x4 lattices.
+8. The generic engine (``Qmc``, directed loops). (a) Phase 5's grown
+   32x32 graph through ``into_qmc()`` with loops and clusters, R=256,
+   beta=1: warm and measured timesteps, ``verify()`` after every measured
+   one, K2, K3 and K4's three entry points launched, the mean op count
+   against phase 5's (5 combined standard errors and 0.5%); then a short
+   heat-bath run, K3-hb launched and K3 not. (b) The XXZ exchange of the
+   JAX package's ``tests/test_sse.py:219-226`` on the lattice's 2048
+   edges, R=256, beta=1, loops only, from a cold cutoff: ``verify()``
+   after every timestep, K2 and K3 launched and K4 not, revert
+   rate below 1. Each prints ms per timestep, ms per stage (diagonal,
+   loops, cluster, free spins; host clock between synchronisations, in
+   timesteps apart from the measured ones), the walks' hops an update
+   (the longest walk and the mean), host reads an update and a timestep,
+   the revert rate, device ms, events and busy share under the profiler
+   (a timestep, and one loop update per hop run), and peak device memory.
+   (c) Against dense ED within 5 standard errors: an 8-site XXZ chain
+   with loops, the same with a forced cap of 16 hops (revert rate in
+   (0.005, 0.95)), and a 3-spin model on a 6-site ring with a transverse
+   field, whose diagonal update runs K2 at K=3.
 
 Then one JSON line of per-kernel results, a line with the card's name and
 power limit, and last a JSON line with the device. The script needs no
@@ -87,8 +106,11 @@ from isingmontecarlo_tpu_torch.classical import metropolis, worm
 from isingmontecarlo_tpu_torch.ops import _build
 from isingmontecarlo_tpu_torch.ops import checkerboard as cb
 from isingmontecarlo_tpu_torch.ops.diag_carry import tie_heavy_carry_inputs
-from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, multi_sweep, tfim_model
+from isingmontecarlo_tpu_torch.sse import Qmc, QmcIsingGraph, multi_sweep, tfim_model
+from isingmontecarlo_tpu_torch.sse import cluster as sse_cluster
 from isingmontecarlo_tpu_torch.sse import diagonal as sse_diagonal
+from isingmontecarlo_tpu_torch.sse import loops as sse_loops
+from isingmontecarlo_tpu_torch.sse import runner as sse_runner
 from isingmontecarlo_tpu_torch.sse import rvb as sse_rvb
 from isingmontecarlo_tpu_torch.sse.cluster import (
     N_COMPRESS, hook_compress_labels, segment_graph,
@@ -115,6 +137,16 @@ RVB_L, RVB_R, RVB_BETA, RVB_CUTOFF = 16, 16, 10.0, 14000
 RVB_GROW, RVB_WARM, RVB_STEPS = 200, 2, 6
 # The deepest RVB row, two_d_rvb_32 (bench.py:297): footprint only.
 RVB32_L, RVB32_R, RVB32_M = 32, 4, 68000
+
+# The generic engine (phase 8): phase 5's grown 32x32 graph through
+# into_qmc with loops (8a: warm, measured and staged timesteps, then a short
+# heat-bath run), and the XXZ exchange of tests/test_sse.py:219-226 on the
+# 2048 edges of the same lattice, loops only, from a cold cutoff (8b).
+GEN_BETA, GEN_WARM, GEN_STEPS, GEN_STAGED, GEN_HB = 1.0, 4, 16, 4, 4
+XXZ_GROW, XXZ_STEPS, XXZ_STAGED = 24, 8, 4
+W_XXZ = np.array([[0.5, 0, 0, 0], [0, 1.0, 0.7, 0], [0, 0.7, 1.0, 0], [0, 0, 0, 0.5]])
+# An Ising-symmetric diagonal 3-spin weight (entry i equals entry ~i).
+W_3SPIN = np.array([1.5, 0.5, 1.0, 0.25, 0.25, 1.0, 0.5, 1.5])
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the
 # float32 rate outside the tensor cores, used for K1's 32-bit integer work.
@@ -986,23 +1018,31 @@ def time_in_turns(g_met: QmcIsingGraph, g_hb: QmcIsingGraph, chunk: int = 16) ->
           f"{json.dumps(times)}; heat-bath / Metropolis {ratio:.3f}", flush=True)
 
 
-def check_heatbath_agrees(met: dict, ns_met, hb: dict, ns_hb) -> None:
-    """Phase 5b: the heat-bath and Metropolis chains sample the same
-    distribution, so their mean op counts agree within 5 combined standard
-    errors (over per-replica means) and within 0.5%."""
-    means = [ns.mean(axis=0) for ns in (ns_met, ns_hb)]
+def mean_n_agrees(label: str, ns, ref_label: str, ns_ref) -> str:
+    """Two chains of one distribution: their mean op counts (over
+    per-replica means) agree within 5 combined standard errors and 0.5%.
+    Raises otherwise; returns the printed comparison."""
+    means = [ns_.mean(axis=0) for ns_ in (ns_ref, ns)]
     se = [m.std(ddof=1) / np.sqrt(len(m)) for m in means]
     diff = float(means[1].mean() - means[0].mean())
     comb = float(np.hypot(*se))
     rel = abs(diff) / float(means[0].mean())
-    print(f"mean n: heat-bath {means[1].mean():.2f} +- {se[1]:.2f}, Metropolis "
-          f"{means[0].mean():.2f} +- {se[0]:.2f}: difference {diff:.2f} "
-          f"({abs(diff) / comb:.2f} combined SE, {100 * rel:.3f}%); ms per sweep "
-          f"heat-bath {hb['ms_per_sweep']:.4f}, Metropolis {met['ms_per_sweep']:.4f} "
-          f"(ratio {hb['ms_per_sweep'] / met['ms_per_sweep']:.3f})", flush=True)
+    text = (f"mean n: {label} {means[1].mean():.2f} +- {se[1]:.2f}, {ref_label} "
+            f"{means[0].mean():.2f} +- {se[0]:.2f}: difference {diff:.2f} "
+            f"({abs(diff) / comb:.2f} combined SE, {100 * rel:.3f}%)")
     if not (abs(diff) < 5 * comb and rel < 0.005):
-        raise AssertionError("the heat-bath chain's mean op count is off the "
-                             "Metropolis chain's")
+        raise AssertionError(f"{text}: the {label} chain's mean op count is off "
+                             f"the {ref_label} chain's")
+    return text
+
+
+def check_heatbath_agrees(met: dict, ns_met, hb: dict, ns_hb) -> None:
+    """Phase 5b: the heat-bath and Metropolis chains sample the same
+    distribution (:func:`mean_n_agrees`)."""
+    text = mean_n_agrees("heat-bath", ns_hb, "Metropolis", ns_met)
+    print(f"{text}; ms per sweep heat-bath {hb['ms_per_sweep']:.4f}, Metropolis "
+          f"{met['ms_per_sweep']:.4f} (ratio {hb['ms_per_sweep'] / met['ms_per_sweep']:.3f})",
+          flush=True)
 
 
 def onsager_energy(beta: float) -> float:
@@ -1173,19 +1213,20 @@ def wrap_rvb_stage(around):
     return restore
 
 
-def profile_timesteps(g: QmcIsingGraph, nsteps: int) -> tuple[dict, list]:
-    """Wall and device ms and device events per timestep of ``g`` over
-    ``nsteps`` timesteps under ``torch.profiler``, after a discarded
-    one-step session; and the device rows, largest first."""
+def profile_timesteps(g, nsteps: int, beta: float = RVB_BETA) -> tuple[dict, list]:
+    """Wall and device ms and device events per timestep of ``g`` (a
+    ``QmcIsingGraph`` or a ``Qmc``) over ``nsteps`` timesteps under
+    ``torch.profiler``, after a discarded one-step session; and the device
+    rows, largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        g.timestep(RVB_BETA)
+        g.timestep(beta)
         torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(nsteps):
-            g.timestep(RVB_BETA)
+            g.timestep(beta)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = sorted((e for e in prof.key_averages()
@@ -1344,6 +1385,290 @@ def check_rvb_physics(dev) -> None:
           flush=True)
 
 
+def wrap_generic_stages(record: list):
+    """Replaces the generic timestep's stage functions by ones timed with a
+    host clock between synchronisations: ``record`` receives ``(stage,
+    seconds, loop stats or None)`` per call. Returns the restoring
+    function."""
+    patches = [(sse_runner, "diagonal_update", "diagonal"),
+               (sse_loops, "loop_update", "loops"),
+               (sse_cluster, "segment_graph", "cluster"),
+               (sse_cluster, "cluster_update_impl", "cluster"),
+               (sse_runner, "resample_free_spins", "free spins")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+
+    def timed(inner, stage):
+        def call(*a, **k):
+            stats = k.setdefault("stats", {}) if stage == "loops" else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*a, **k)
+            torch.cuda.synchronize()
+            record.append((stage, time.perf_counter() - t0, stats))
+            return out
+        return call
+
+    for (mod, attr, inner), (_, _, stage) in zip(saved, patches):
+        setattr(mod, attr, timed(inner, stage))
+
+    def restore():
+        for mod, attr, inner in saved:
+            setattr(mod, attr, inner)
+    return restore
+
+
+def staged_timesteps(q: Qmc, nsteps: int) -> dict:
+    """ms per stage of ``nsteps`` timesteps of ``q`` (host clock between
+    synchronisations, so outside the measured timesteps) and the loop
+    walks: hops an update (the longest walk and the mean), hops run (whole
+    blocks), host reads an update."""
+    record: list = []
+    restore = wrap_generic_stages(record)
+    try:
+        for _ in range(nsteps):
+            q.timestep(GEN_BETA)
+    finally:
+        restore()
+    ms = {st: 1e3 * sum(t for s_, t, _ in record if s_ == st) / nsteps
+          for st in ("diagonal", "loops", "cluster", "free spins")}
+    walks = [x for s_, _, x in record if s_ == "loops"]
+    if len(walks) != nsteps:
+        raise AssertionError(f"{len(walks)} loop updates in {nsteps} timesteps")
+    reads = [w["host_reads"] for w in walks]
+    hops_run = sse_loops.HOP_BLOCK * float(np.mean(reads))
+    return {"ms_per_stage": ms, "ms_per_staged_timestep": sum(ms.values()),
+            "hops_longest": [int(w["hops"].max()) for w in walks],
+            "hops_mean": float(np.mean([float(w["hops"].float().mean()) for w in walks])),
+            "host_reads_per_loop_update": float(np.mean(reads)),
+            "ms_per_hop_run": ms["loops"] / hops_run}
+
+
+def profile_loop_update(q: Qmc) -> dict:
+    """Device ms and events of one loop update on ``q``'s string under
+    ``torch.profiler`` (the result is discarded), per hop run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sse = q.get_manager_ref(), q.state_ref()
+
+    def run(stats):
+        sse_loops.loop_update(*sse, q.draws.loops(), q.model, stats=stats)
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run({})
+    stats: dict = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(stats)
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    hops_run = sse_loops.HOP_BLOCK * stats["host_reads"]
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    events = sum(e.count for e in rows)
+    return {"hops_run": hops_run, "loop_wall_ms": 1e3 * wall, "loop_device_ms": dev_ms,
+            "device_events_per_hop": events / hops_run,
+            "device_us_per_hop": 1e3 * dev_ms / hops_run,
+            "loop_busy_share": dev_ms / (1e3 * wall)}
+
+
+def measure_generic(q: Qmc, label: str, nsteps: int, nstaged: int, card: str) -> dict:
+    """The measured timesteps of phase 8a or 8b: ``verify()`` after each,
+    then the staged timesteps, the host reads of one timestep, two
+    profiled timesteps and one profiled loop update. Returns the printed
+    results, with the op counts ``[nsteps, R]`` under ``"ns"``."""
+    walls, ns = [], []
+    for _ in range(nsteps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q.timestep(GEN_BETA)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ns.append(q.get_n().cpu().numpy())
+        if not q.verify():
+            raise AssertionError(f"{label}: verify() failed after a timestep")
+    ns = np.stack(ns)
+    if not np.all(np.isfinite(-ns / GEN_BETA + q.get_offset())):
+        raise AssertionError(f"{label}: energies are not finite")
+    out = {"ms_per_timestep": 1e3 * float(np.mean(walls)),
+           "ms_per_timestep_each": [1e3 * w for w in walls],
+           "loop_revert_rate": q.loop_revert_rate(), "cutoff": q.get_cutoff(),
+           "mean_n": float(ns.mean())}
+    out.update(staged_timesteps(q, nstaged))
+    out["host_reads_per_timestep"] = count_syncs(lambda: q.timestep(GEN_BETA))
+    prof, rows = profile_timesteps(q, 2, beta=GEN_BETA)
+    out.update({"wall_ms_per_timestep_profiled": prof["wall_ms"],
+                "device_ms_per_timestep": prof["device_ms"],
+                "device_events_per_timestep": prof["events"],
+                "busy_share": prof["device_ms"] / prof["wall_ms"]})
+    out.update(profile_loop_update(q))
+    if not q.verify():
+        raise AssertionError(f"{label}: verify() failed after the staged timesteps")
+    out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"{label} ({card}): " + json.dumps(out), flush=True)
+    print(f"{label}: largest device items of the profiled timesteps, ms per timestep (calls):",
+          flush=True)
+    for e in rows[:10]:
+        print(f"  {e.self_device_time_total / 1e3 / 2:.4f} ({e.count / 2:g})  {e.key[:100]}",
+              flush=True)
+    out["ns"] = ns
+    return out
+
+
+def run_generic_tfim(g: QmcIsingGraph, ns_ref, card: str) -> dict:
+    """Phase 8a: phase 5's grown 32x32 graph through ``into_qmc`` with
+    loops at full width; K2, K3 and K4 launched in the measured timesteps,
+    its mean op count against phase 5's; then a short heat-bath run, K3-hb
+    launched and K3 not. Returns the measured timesteps' launches."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = g.into_qmc()
+    q.set_do_loop_updates(True)
+    if not (q.should_do_cluster_update() and q.model.max_legs == 2 and q.nvars == N
+            and q.replicas == R and q.get_offset() == g.get_offset()):
+        raise AssertionError("into_qmc did not carry the 32x32 graph over")
+    for _ in range(GEN_WARM):
+        q.timestep(GEN_BETA)
+    torch.cuda.synchronize()
+    print(f"32x32 Qmc from into_qmc, loops and clusters, R={R}, beta={GEN_BETA}: "
+          f"{GEN_WARM} warm timesteps in {time.perf_counter() - t0:.1f} s, cutoff "
+          f"{q.get_cutoff()}", flush=True)
+    ops.reset_launch_counts()
+    out = measure_generic(q, "8a 32x32 Qmc with loops", GEN_STEPS, GEN_STAGED, card)
+    counts = ops.launch_counts()
+    print(f"kernel launches in 8a's measured timesteps: {counts}", flush=True)
+    kernels = ("parity_bits", "carry_decisions", *SSE_K4)
+    if min(counts[k] for k in kernels) <= 0:
+        raise AssertionError(f"a kernel of the generic path was not launched: {counts}")
+    print(mean_n_agrees("Qmc with loops", out["ns"], "QmcIsingGraph (phase 5)", ns_ref),
+          flush=True)
+
+    q.set_do_heatbath(True)
+    ops.reset_launch_counts()
+    for _ in range(GEN_HB):
+        q.timestep(GEN_BETA)
+        if not q.verify():
+            raise AssertionError("verify() failed in the generic heat-bath run")
+    torch.cuda.synchronize()
+    hb = ops.launch_counts()
+    print(f"kernel launches in {GEN_HB} heat-bath timesteps of the Qmc: {hb}", flush=True)
+    if hb["carry_decisions_heatbath"] <= 0 or hb["carry_decisions"] != 0:
+        raise AssertionError(f"the generic heat-bath run did not take K3-hb alone: {hb}")
+    return counts
+
+
+def xxz_qmc(dev, edges, nvars: int, replicas: int, seed: int) -> Qmc:
+    """The XXZ exchange on every edge, loops only."""
+    q = Qmc(nvars, replicas=replicas, seed=seed, do_loop_updates=True, device=dev)
+    for (a, b), _ in edges:
+        q.make_interaction(W_XXZ, [a, b])
+    if q.has_cluster_edges or q.should_do_cluster_update():
+        raise AssertionError("the XXZ model has no cluster edges")
+    return q
+
+
+def run_generic_xxz(dev, card: str) -> dict:
+    """Phase 8b: the XXZ exchange on the 2048 edges of the 32x32 lattice at
+    R=256, loops only, grown from a cold cutoff, ``verify()`` after every
+    timestep; K2 and K3 launched, K4 not; the revert rate below 1. Returns
+    the measured timesteps' launches."""
+    torch.cuda.reset_peak_memory_stats()
+    edges = lattice.bench_two_d_periodic(32)
+    t0 = time.perf_counter()
+    q = xxz_qmc(dev, edges, N, R, seed=11)
+    if len(edges) != 2048:
+        raise AssertionError(f"{len(edges)} edges")
+    for _ in range(XXZ_GROW):  # single timesteps, the cutoff grown after each
+        q.timestep(GEN_BETA)
+        if not q.verify():
+            raise AssertionError("8b: verify() failed in a growth timestep")
+    torch.cuda.synchronize()
+    print(f"32x32 XXZ, loops only, R={R}, beta={GEN_BETA}: {XXZ_GROW} growth timesteps in "
+          f"{time.perf_counter() - t0:.1f} s, verify() after each, cutoff {q.get_cutoff()}",
+          flush=True)
+    q.total_loop_reverts = q.total_loop_updates = 0
+    ops.reset_launch_counts()
+    out = measure_generic(q, "8b 32x32 XXZ with loops", XXZ_STEPS, XXZ_STAGED, card)
+    counts = ops.launch_counts()
+    print(f"kernel launches in 8b's measured timesteps: {counts}", flush=True)
+    if counts["parity_bits"] <= 0 or counts["carry_decisions"] <= 0 or any(
+            counts[k] for k in SSE_K4):
+        raise AssertionError(f"the XXZ path did not take K2 and K3 without K4: {counts}")
+    if not out["loop_revert_rate"] < 1.0:
+        raise AssertionError(f"every XXZ walk reverted: {out['loop_revert_rate']}")
+    return counts
+
+
+def exact_generic_energy(nvars: int, interactions, beta: float) -> float:
+    """Thermal <H> of ``H = -sum_b W_b`` by dense ED: ``W_b`` a 2^k x 2^k
+    matrix (row = outputs) or a diagonal over its variables, the first the
+    most significant bit; the SSE estimator is ``-<n>/beta`` of it."""
+    dim = 1 << nvars
+    idx = np.arange(dim)
+    H = np.zeros((dim, dim))
+    for mat, vars in interactions:
+        k = len(vars)
+        mask = sum(1 << v for v in vars)
+        loc = sum(((idx >> v) & 1) << (k - 1 - l) for l, v in enumerate(vars))
+        if mat.ndim == 1:
+            H[idx, idx] -= mat[loc]
+            continue
+        for o in range(1 << k):
+            out = (idx & ~mask) | sum(((o >> (k - 1 - l)) & 1) << v for l, v in enumerate(vars))
+            H[out, idx] -= mat[o, loc]
+    w = np.linalg.eigvalsh(H)
+    z = np.exp(-beta * (w - w.min()))
+    return float(((w - w.min()) * z).sum() / z.sum()) + float(w.min())
+
+
+def check_generic_physics(dev) -> None:
+    """Phase 8c: on the card, against dense ED within 5 standard errors:
+    the XXZ chain (L=8) with loops, the same chain with a forced cap of 16
+    hops (revert rate in (0.005, 0.95)), and a 3-spin model on a 6-site
+    ring with a transverse field, loops and clusters, whose diagonal update
+    runs K2 at K=3."""
+    beta = 1.2
+    chain = lattice.chain(8, periodic=False)
+    cases = [("XXZ chain L=8", lambda: xxz_qmc(dev, chain, 8, 512, seed=21), None),
+             ("XXZ chain L=8, cap 16", lambda: xxz_qmc(dev, chain, 8, 512, seed=22), 16)]
+
+    def three_spin():
+        q = Qmc(6, replicas=512, seed=23, do_loop_updates=True, device=dev)
+        for a in range(6):
+            q.make_diagonal_interaction_and_offset(W_3SPIN, [a, (a + 1) % 6, (a + 2) % 6])
+        for v in range(6):
+            q.make_interaction(np.full((2, 2), 0.6), [v])
+        if q.model.max_legs != 3 or not q.should_do_cluster_update():
+            raise AssertionError("the 3-spin model is not K=3 with clusters")
+        return q
+
+    cases.append(("3-spin ring N=6 with a field", three_spin, None))
+    for label, make, cap in cases:
+        q = make()
+        q.set_loop_cap(cap)
+        q.timesteps(30, beta)
+        q.total_loop_reverts = q.total_loop_updates = 0
+        ops.reset_launch_counts()
+        total_n = torch.zeros(q.replicas, dtype=torch.float64, device=dev)
+        steps = 120
+        for _ in range(steps):
+            q.timestep(beta)
+            total_n += q.get_n()
+        e = (-(total_n / steps) / beta).cpu().numpy()
+        exact = exact_generic_energy(q.nvars, q._interactions, beta)
+        se = e.std() / np.sqrt(len(e))
+        rate = q.loop_revert_rate()
+        k2 = ops.launch_counts()["parity_bits"]
+        print(f"{label}, beta={beta}, R={q.replicas}, K={q.model.max_legs}: -<n>/beta "
+              f"{e.mean():.5f} +- {se:.5f} (ED {exact:.5f}, {abs(e.mean() - exact) / se:.2f} "
+              f"SE), revert rate {rate:.4f}, K2 launches {k2}", flush=True)
+        if not np.all(np.isfinite(e)) or abs(e.mean() - exact) >= 5 * se or not q.verify():
+            raise AssertionError(f"{label} is not within 5 SE of ED")
+        if cap is not None and not 0.005 < rate < 0.95:
+            raise AssertionError(f"{label}: the cap must fire (rate {rate})")
+        if k2 <= 0:
+            raise AssertionError(f"{label}: K2 was not launched")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1429,6 +1754,13 @@ def main() -> None:
     if min(counts[k] for k in sse_kernels) <= 0:
         raise AssertionError(f"a kernel of the RVB path was not launched: {counts}")
     check_rvb_physics(dev)
+
+    phase("8a. generic engine: phase 5's 32x32 graph through into_qmc, with loops")
+    run_generic_tfim(g_met, ns_met, card)
+    phase("8b. generic engine: the XXZ exchange on the 32x32 lattice, loops only")
+    run_generic_xxz(dev, card)
+    phase("8c. generic engine: XXZ chains and a 3-spin model against ED")
+    check_generic_physics(dev)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

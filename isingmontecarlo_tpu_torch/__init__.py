@@ -1,5 +1,6 @@
-"""isingmontecarlo_tpu_torch — the classical engine and the SSE
-transverse-field Ising engine of ``isingmontecarlo_tpu`` on PyTorch, with
+"""isingmontecarlo_tpu_torch — the classical engine, the SSE
+transverse-field Ising engine and the generic k-local SSE engine of
+``isingmontecarlo_tpu`` on PyTorch, with
 hand-written CUDA kernels for an NVIDIA Hopper GPU.
 
 The package imports ``torch`` and numpy only. Constructors and entry points
@@ -10,7 +11,7 @@ tensor runs each kernel's plain PyTorch version and a CUDA tensor the kernel
 
 from isingmontecarlo_tpu_torch import analysis, classical, lattice, ops, sse
 from isingmontecarlo_tpu_torch.classical import GraphState, LatticeIsing
-from isingmontecarlo_tpu_torch.sse import QmcIsingGraph, tfim_model
+from isingmontecarlo_tpu_torch.sse import Qmc, QmcIsingGraph, tfim_model
 
-__all__ = ["GraphState", "LatticeIsing", "QmcIsingGraph", "analysis", "classical",
+__all__ = ["GraphState", "LatticeIsing", "Qmc", "QmcIsingGraph", "analysis", "classical",
            "lattice", "ops", "sse", "tfim_model"]

@@ -12,6 +12,7 @@ from isingmontecarlo_tpu_torch.sse.diagonal import HeatBathTables
 from isingmontecarlo_tpu_torch.sse.ising import SseState
 from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import OpString
+from isingmontecarlo_tpu_torch.sse.runner import Qmc
 from isingmontecarlo_tpu_torch.sse.rvb import RvbTables
 
 
@@ -70,3 +71,20 @@ def rvb_tables_from_numpy(neigh_bond, neigh_var, bond_mag, nedges: int,
 # the two colour counts), colourings included, so both packages sweep the
 # same colour classes.
 graph_tables_from_numpy = tables_from_numpy
+
+
+def qmc_from_numpy(nvars: int, interactions, offset: float, *, bond, inputs, outputs,
+                   state, seed: int = 0, device: torch.device | str) -> Qmc:
+    """A port :class:`Qmc` from a JAX ``Qmc``'s data: its stored
+    interactions ``[(mat, vars), ...]`` (``_interactions``, post-offset), its
+    ``offset``, and its op string's and state's arrays, so both packages
+    step the same model from the same string. The random stream is the
+    port's own, from ``seed``."""
+    state = np.asarray(state)
+    q = Qmc(nvars, replicas=state.shape[0], seed=seed, device=device)
+    for mat, vars in interactions:
+        q._append(np.asarray(mat, dtype=np.float64), list(vars))
+    q.offset = float(offset)
+    q._sse = sse_state_from_numpy(bond=bond, inputs=inputs, outputs=outputs, state=state,
+                                  device=device)
+    return q

@@ -1,9 +1,12 @@
 """Stochastic series expansion QMC for the transverse-field Ising model
 (port of ``isingmontecarlo_tpu.sse``: the Metropolis and heat-bath diagonal
 updates, the RVB update, the cluster update and the ``QmcIsingGraph``
-stepping API)."""
+stepping API) and the generic k-local engine (``Qmc``, with the
+directed-loop update)."""
 
-from isingmontecarlo_tpu_torch.sse import cluster, debug, diagonal, opstring, rvb
+from isingmontecarlo_tpu_torch.sse import (
+    cluster, debug, diagonal, loops, opstring, runner, rvb,
+)
 from isingmontecarlo_tpu_torch.sse.cluster import (
     cluster_update, cluster_update_impl, segment_graph,
 )
@@ -22,8 +25,12 @@ from isingmontecarlo_tpu_torch.sse.ising import (
     resample_free_spins,
     sweep,
 )
-from isingmontecarlo_tpu_torch.sse.model import BondModel, tfim_model
+from isingmontecarlo_tpu_torch.sse.loops import GeneratorLoopDraws, LoopDraws, loop_update
+from isingmontecarlo_tpu_torch.sse.model import BondModel, generic_model, tfim_model
 from isingmontecarlo_tpu_torch.sse.opstring import OpString
+from isingmontecarlo_tpu_torch.sse.runner import (
+    Interaction, Qmc, generic_multi_sweep, generic_sweep,
+)
 from isingmontecarlo_tpu_torch.sse.rvb import (
     GeneratorRvbDraws, RvbDraws, RvbTables, make_rvb_tables, rvb_sweep,
 )
@@ -32,10 +39,14 @@ __all__ = [
     "BondModel",
     "Draws",
     "GeneratorDraws",
+    "GeneratorLoopDraws",
     "GeneratorRvbDraws",
     "HamInfo",
     "HeatBathTables",
+    "Interaction",
+    "LoopDraws",
     "OpString",
+    "Qmc",
     "QmcIsingGraph",
     "RvbDraws",
     "RvbTables",
@@ -46,6 +57,11 @@ __all__ = [
     "debug",
     "diagonal",
     "diagonal_update",
+    "generic_model",
+    "generic_multi_sweep",
+    "generic_sweep",
+    "loop_update",
+    "loops",
     "make_heatbath_tables",
     "make_rvb_tables",
     "multi_sweep",
@@ -53,6 +69,7 @@ __all__ = [
     "new_qmc_from_graph",
     "opstring",
     "resample_free_spins",
+    "runner",
     "rvb",
     "rvb_sweep",
     "segment_graph",

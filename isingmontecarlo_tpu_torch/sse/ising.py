@@ -30,6 +30,7 @@ from isingmontecarlo_tpu_torch.analysis import autocorr as _ac
 from isingmontecarlo_tpu_torch.lattice import Edge, edge_arrays, nvars_from_edges
 from isingmontecarlo_tpu_torch.sse import cluster as _cluster
 from isingmontecarlo_tpu_torch.sse import debug as _debug
+from isingmontecarlo_tpu_torch.sse import loops as _loops
 from isingmontecarlo_tpu_torch.sse import opstring as _ops
 from isingmontecarlo_tpu_torch.sse import rvb as _rvb
 from isingmontecarlo_tpu_torch.sse.diagonal import (
@@ -79,6 +80,9 @@ class Draws(Protocol):
     def rvb(self, n_updates: int) -> _rvb.RvbDraws:
         """The draws of the timestep's RVB sweep of ``n_updates`` updates."""
 
+    def loops(self) -> _loops.LoopDraws:
+        """The draws of the timestep's directed-loop update."""
+
 
 class GeneratorDraws:
     """:class:`Draws` from a ``torch.Generator`` on one device."""
@@ -101,6 +105,9 @@ class GeneratorDraws:
 
     def rvb(self, n_updates):
         return _rvb.GeneratorRvbDraws(self.generator)
+
+    def loops(self):
+        return _loops.GeneratorLoopDraws(self.generator)
 
 
 def resample_free_spins(sse: SseState, fresh: torch.Tensor, model: BondModel,
@@ -337,6 +344,43 @@ class QmcIsingGraph:
         if not self.can_swap_managers(other):
             raise ValueError("graphs of different shapes cannot swap managers")
         self.sse, other.sse = other.sse, self.sse
+
+    # -- conversion (IntoQmc, qmc_ising.rs:934-976) -------------------------
+
+    def into_qmc(self):
+        """A generic :class:`~isingmontecarlo_tpu_torch.sse.runner.Qmc` with the
+        same interactions, op string, state, random stream and device
+        (``qmc_ising.rs:946-976``): edges become diagonal interactions
+        ``[-J, J, J, -J]`` with offset, the transverse field a constant 2x2
+        interaction, the longitudinal field a diagonal ``[-h, h]`` with
+        offset. The bond layout is ``tfim_model``'s, so the op string
+        carries over as it is."""
+        from isingmontecarlo_tpu_torch.sse.runner import Qmc
+
+        q = Qmc(self.nvars, replicas=self.replicas, state=self.sse.state,
+                device=self.device)
+        for (a, b), j in self.edges:
+            q.make_diagonal_interaction_and_offset([-j, j, j, -j], [a, b])
+        g = self.transverse
+        for v in range(self.nvars):
+            q.make_interaction([[g, g], [g, g]], [v])
+        # The constant all-Gamma matrix is Gamma (sx + 1) and must stay
+        # constant (a cluster edge), so its +Gamma per site goes into the
+        # offset. The reference's IntoQmc drops it (qmc_ising.rs:958-963),
+        # so its energies come out shifted by -N Gamma.
+        q.offset += self.nvars * g
+        if abs(self.longitudinal) > 1e-12:
+            # Up |h| + h, down |h| - h, as longitudinal_hamiltonian
+            # (qmc_ising.rs:880-888); the reference's IntoQmc passes an
+            # inverted, sign-indefinite matrix (qmc_ising.rs:964-967).
+            h = self.longitudinal
+            for v in range(self.nvars):
+                q.make_diagonal_interaction_and_offset([-h, h], [v])
+        q._sse = self.sse
+        generator = torch.Generator(device=self.device)
+        generator.set_state(self.draws.generator.get_state())
+        q.draws = GeneratorDraws(generator)
+        return q
 
     # -- toggles (qmc_ising.rs:435-486) ------------------------------------
 

@@ -154,3 +154,78 @@ def tfim_model(
         t(cls), t(wtab), t(cls_full), t(wtab_full),
         offset=offset, nvars=nvars,
     ).to(device)
+
+
+def generic_model(
+    nvars: int,
+    interactions: Sequence[tuple[np.ndarray, Sequence[int]]],
+    offset: float = 0.0,
+    *,
+    device: torch.device | str = "cuda",
+) -> BondModel:
+    """A model of arbitrary k-local interaction matrices, on ``device``
+    (``Qmc::make_interaction``, ``qmc_runner.rs:112-156``).
+
+    ``interactions`` is a list of ``(mat, vars)``: ``mat`` a full
+    ``2^k x 2^k`` matrix (row = outputs, column = inputs; the first variable
+    is the most significant bit, ``qmc_runner.rs:673-680``) or a
+    length-``2^k`` diagonal, with non-negative entries. ``K`` is the largest
+    ``k``; a bond of fewer legs is constant in the unused legs' bits."""
+    K = max(len(vars) for _, vars in interactions)
+    nb = len(interactions)
+    bond_vars = np.full((nb, K), -1, dtype=np.int32)
+    is_constant = np.zeros((nb,), dtype=bool)
+    diag_w = np.zeros((nb, 1 << K), dtype=np.float32)
+    full_w = np.zeros((nb, 1 << K, 1 << K), dtype=np.float32)
+
+    for b, (mat, vars) in enumerate(interactions):
+        mat = np.asarray(mat, dtype=np.float64)
+        k = len(vars)
+        bond_vars[b, :k] = vars
+        nstates = 1 << k
+
+        def to_ref_bits(local_idx: int) -> int:
+            # Bit l here is slot l's spin; the reference's first variable is
+            # the most significant bit.
+            ref = 0
+            for l in range(k):
+                ref = (ref << 1) | ((local_idx >> l) & 1)
+            return ref
+
+        if mat.ndim == 1 or (mat.ndim == 2 and mat.shape[0] == 1):
+            mat = mat.reshape(-1)
+            if mat.shape[0] != nstates:
+                raise ValueError(f"diagonal interaction len {mat.shape[0]} != 2^{k}")
+            if np.any(mat < 0):
+                raise ValueError("negative weights are not allowed")
+            for s in range(nstates):
+                w = float(mat[to_ref_bits(s)])
+                for pad in range(1 << (K - k)):
+                    idx = s | (pad << k)
+                    diag_w[b, idx] = w
+                    full_w[b, idx, idx] = w
+        else:
+            if mat.shape != (nstates, nstates):
+                raise ValueError(f"interaction shape {mat.shape} != (2^{k}, 2^{k})")
+            if np.any(mat < 0):
+                raise ValueError("negative weights are not allowed")
+            for si in range(nstates):
+                for so in range(nstates):
+                    # reference index = (outputs << k) + inputs
+                    w = float(mat[to_ref_bits(so), to_ref_bits(si)])
+                    for pad in range(1 << (K - k)):
+                        ii = si | (pad << k)
+                        oo = so | (pad << k)
+                        full_w[b, ii, oo] = w
+                        if ii == oo:
+                            diag_w[b, ii] = w
+            is_constant[b] = bool(np.all(np.abs(mat - mat.flat[0]) < 1e-12))
+
+    cls, wtab = class_tables(diag_w)
+    cls_full, wtab_full = class_tables(full_w.reshape(nb, -1))
+    t = torch.from_numpy
+    return BondModel(
+        t(bond_vars), t(is_constant), t(diag_w), t(full_w),
+        t(cls), t(wtab), t(cls_full), t(wtab_full),
+        offset=offset, nvars=nvars,
+    ).to(device)

@@ -7,13 +7,15 @@ The op string is a fixed-capacity struct of arrays, with imaginary time
 - ``inputs/outputs: bool[K, M, R]`` — per-leg spin states.
 
 Per-variable adjacency is derived on demand by a stable sort of all legs
-along imaginary time (see :func:`verify` and ``cluster.segment_graph``).
+along imaginary time (see :func:`verify`, :func:`worldline_maps` and
+``cluster.segment_graph``).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from isingmontecarlo_tpu_torch.sse.model import BondModel
@@ -67,6 +69,31 @@ def grow(ops: OpString, new_cutoff: int) -> OpString:
     )
 
 
+def new_from_ops(cutoff: int, ops, *, replicas: int | None = None, max_legs: int = 2,
+                 device: torch.device | str = "cuda") -> OpString:
+    """An op string from explicit ``(p, bond, inputs, outputs)`` tuples
+    (``FastOpsTemplate::new_from_ops``, ``fast_ops.rs:80-173``): one
+    iterable of tuples for a single replica, or with ``replicas`` one such
+    iterable per replica. ``inputs``/``outputs`` are per-leg spins, at most
+    ``max_legs`` of them."""
+    per_rep = [list(ops)] if replicas is None else [list(x) for x in ops]
+    if replicas is not None and len(per_rep) != replicas:
+        raise ValueError(f"expected {replicas} per-replica op lists")
+    R = len(per_rep)
+    bond = np.full((cutoff, R), -1, np.int32)
+    ins = np.zeros((max_legs, cutoff, R), bool)
+    outs = np.zeros((max_legs, cutoff, R), bool)
+    for r, lst in enumerate(per_rep):
+        for p, b, i_bits, o_bits in lst:
+            bond[p, r] = b
+            for leg, v in enumerate(i_bits):
+                ins[leg, p, r] = bool(v)
+            for leg, v in enumerate(o_bits):
+                outs[leg, p, r] = bool(v)
+    t = torch.from_numpy
+    return OpString(t(bond).to(device), t(ins).to(device), t(outs).to(device))
+
+
 def op_count(ops: OpString) -> torch.Tensor:
     """``n`` per replica, ``i32[R]`` (``OpContainer::get_n``)."""
     return (ops.bond >= 0).sum(dim=0, dtype=torch.int32)
@@ -80,6 +107,17 @@ def bond_counts(ops: OpString, nbonds: int) -> torch.Tensor:
     ones = torch.ones_like(ops.bond)
     counts = torch.zeros((nbonds + 1, R), dtype=torch.int32, device=b.device)
     return counts.scatter_add_(0, b, ones)[:nbonds].T.contiguous()
+
+
+def leg_valid(ops: OpString, model: BondModel) -> torch.Tensor:
+    """bool[K, M, R]: the leg slot holds a real variable."""
+    return op_vars(ops, model) >= 0
+
+
+def is_diagonal(ops: OpString) -> torch.Tensor:
+    """bool[M, R]; identity slots count as diagonal (padded legs hold equal
+    inputs and outputs by construction)."""
+    return (ops.inputs == ops.outputs).all(dim=0)
 
 
 def op_vars(ops: OpString, model: BondModel) -> torch.Tensor:
@@ -123,6 +161,54 @@ def sorted_legs(ops: OpString, model: BondModel):
     key = torch.where(leg_var >= 0, leg_var * M + p_of_f, SORT_BIG)
     skey, order = torch.sort(key, dim=0, stable=True)
     return skey, order, leg_var
+
+
+def worldline_maps(ops: OpString, model: BondModel):
+    """Flat-leg successor and predecessor maps along each variable's
+    worldline, periodic in imaginary time (the reference's per-variable
+    doubly linked lists, ``fast_ops.rs:176-207``), from one sort of all
+    legs (:func:`sorted_legs`).
+
+    Flat leg index ``f = l*M + p``. Returns ``(wnext, wprev, leg_var,
+    (order, svar, seg_start))``: ``wnext/wprev/leg_var i32[K*M, R]``
+    (invalid legs map to themselves); ``order i32[K*M, R]`` the flat index
+    of each sorted leg, ``svar i32[K*M, R]`` its variable (``-1`` for
+    invalid legs) and ``seg_start bool[K*M, R]`` the first row of each
+    variable's run. The sort is stable with invalid legs keyed last, the
+    same permutation as the JAX package's unique keys (invalid legs
+    tie-broken by flat index). The wrap targets of a run's tail and head
+    are the flat indices of its first and last legs: a ``cummax`` of
+    flagged row numbers, then a gather; the back-permute to flat leg space
+    is a scatter by ``order``."""
+    M, R = ops.bond.shape
+    KM = ops.max_legs * M
+    dev = ops.bond.device
+    skey, order, leg_var = sorted_legs(ops, model)
+    svar = torch.where(skey < SORT_BIG, skey // M, -1)
+    same = svar[1:] == svar[:-1]  # row j+1 continues row j's run
+    seg_start = torch.ones_like(skey, dtype=torch.bool)
+    seg_start[1:] = ~same
+    seg_end = torch.ones_like(seg_start)
+    seg_end[:-1] = ~same
+    # The scans run along the innermost axis of the transpose: PyTorch's
+    # CUDA scan along the outer axis takes a thread a column (5 ms each at
+    # the 32x32 shape [14016, 256]).
+    row = torch.arange(KM, device=dev)
+    head_row = torch.where(seg_start.T, row, 0).cummax(dim=1).values.T
+    # The tail of each run, broadcast upward: a running minimum from the end.
+    tail_row = torch.where(seg_end.T, row, KM - 1).flip(1).cummin(dim=1).values.flip(1).T
+    tgt_next = torch.gather(order, 0, head_row)  # wraps to the run's first leg
+    tgt_prev = torch.gather(order, 0, tail_row)  # wraps to the run's last leg
+    tgt_next[:-1] = torch.where(same, order[1:], tgt_next[:-1])
+    tgt_prev[1:] = torch.where(same, order[:-1], tgt_prev[1:])
+    # Sorted row j belongs at flat row order[j].
+    wnext = torch.empty_like(order).scatter_(0, order, tgt_next)
+    wprev = torch.empty_like(order).scatter_(0, order, tgt_prev)
+    self_f = row[:, None].expand(KM, R)
+    valid = leg_var >= 0
+    wnext = torch.where(valid, wnext, self_f).to(torch.int32)
+    wprev = torch.where(valid, wprev, self_f).to(torch.int32)
+    return wnext, wprev, leg_var, (order.to(torch.int32), svar, seg_start)
 
 
 def itime_fold(ops: OpString, state: torch.Tensor, model: BondModel, fold_fn, init):

@@ -139,6 +139,7 @@ def test_port_imports_without_jax():
         "import isingmontecarlo_tpu_torch as p\n"
         "from isingmontecarlo_tpu_torch import convert, lattice, ops\n"
         "from isingmontecarlo_tpu_torch.sse import cluster, diagonal, ising, model, opstring, tables\n"
+        "from isingmontecarlo_tpu_torch.sse import loops, runner\n"
         "from isingmontecarlo_tpu_torch.analysis import autocorr\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'isingmontecarlo_tpu.'))"
         " or m == 'isingmontecarlo_tpu']\n"

@@ -100,18 +100,51 @@ class JaxRvbDraws:
         return t_(jax.random.gumbel(k, shape))
 
 
+class JaxLoopDraws:
+    """``loops.loop_update``'s draws replayed from its key as port tensors:
+    ``split(key, 4)`` into the start index, leg and side keys and the walk
+    key (``loops.py:101``), then one ``split`` of the walk key per hop, whose
+    second half draws the hop's exit uniform (``loops.py:130, 137``).
+    ``scale`` multiplies every exit uniform (a test's perturbation)."""
+
+    def __init__(self, key, scale: float = 1.0):
+        self.k_n, self.k_leg, self.k_side, self.k_walk = jax.random.split(key, 4)
+        self.exit_keys = []
+        self.scale = scale
+
+    def start_index(self, hi):
+        return t_(jax.random.randint(self.k_n, hi.shape, 0, jnp.asarray(np_(hi))))
+
+    def start_leg(self, hi):
+        return t_(jax.random.randint(self.k_leg, hi.shape, 0, jnp.asarray(np_(hi))))
+
+    def start_side(self, replicas):
+        return t_(jax.random.randint(self.k_side, (replicas,), 0, 2))
+
+    def exits(self, hop0, count, replicas):
+        while len(self.exit_keys) < hop0 + count:
+            self.k_walk, k_exit = jax.random.split(self.k_walk)
+            self.exit_keys.append(k_exit)
+        keys = jnp.stack(self.exit_keys[hop0:hop0 + count])
+        u = jax.vmap(lambda k: jax.random.uniform(k, (replicas,)))(keys)
+        return t_(u) * self.scale
+
+
 class JaxSweepDraws:
     """One JAX timestep's draws (``ising.py:146``, ``diagonal.py:558``,
-    ``rvb.py:1534``, ``cluster.py:654, 720``, ``ising.py:87``) as port
-    tensors."""
+    ``rvb.py:1534``, ``cluster.py:654, 720``, ``ising.py:87``; the generic
+    timestep's ``runner.py:54``) as port tensors."""
 
-    def __init__(self, k_diag, k_clust, k_free, k_rvb=None):
+    def __init__(self, k_diag, k_clust, k_free, k_rvb=None, k_loops=None):
         self.k_diag, self.k_clust, self.k_free = k_diag, k_clust, k_free
-        self.k_rvb = k_rvb
+        self.k_rvb, self.k_loops = k_rvb, k_loops
         self.cluster_shapes = []
 
     def rvb(self, n_updates):
         return JaxRvbDraws(self.k_rvb, n_updates)
+
+    def loops(self):
+        return JaxLoopDraws(self.k_loops)
 
     def diagonal(self, shape):
         return t_(jax.random.uniform(self.k_diag, shape))
@@ -135,6 +168,19 @@ class JaxKeyDraws:
     def next(self) -> JaxSweepDraws:
         self.key, k_diag, k_rvb, k_clust, k_free = jax.random.split(self.key, 5)
         return JaxSweepDraws(k_diag, k_clust, k_free, k_rvb)
+
+
+class JaxGenericKeyDraws:
+    """Per-timestep draws split from a JAX key as ``generic_multi_sweep``
+    splits it (``key, k_d, k_l, k_c, k_f = split(key, 5)``,
+    ``runner.py:54``); pass ``.next`` as its ``next_draws``."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def next(self) -> JaxSweepDraws:
+        self.key, k_d, k_l, k_c, k_f = jax.random.split(self.key, 5)
+        return JaxSweepDraws(k_d, k_c, k_f, k_loops=k_l)
 
 
 class JaxChainDraws:
