@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SSE timestep, its generic engine and its
-classical engine on one CUDA GPU and check them.
+"""Drive the PyTorch port's SSE timestep, its generic engine, its classical
+engine and its parallel tempering on one CUDA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA host
 
@@ -19,7 +19,10 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    global-memory variant at ragged L and at 2048^2, R=2, where no cluster
    holds the field; K2 at K = 1..6 on ragged shapes. K3 and K3-hb also at
    ragged shapes and on tie-heavy inputs, whose
-   slots sit on the comparisons' edge, timed on those too. K4's three
+   slots sit on the comparisons' edge, timed on those too. K2's
+   global-memory variant at K = 1..6 on ragged shapes and, through
+   ``parity_bits``, at K=2, M=7000, R=64, N=36,864 (past the shared-memory
+   limit of N = 29,056), timed there beside its byte bound. K4's three
    entry points (``take0`` on one and on two grids, ``hook_min``,
    ``pointer_jump``) beside ``torch.gather``, and one
    hook round as the port ran it before (gathers, ``scatter_reduce``,
@@ -82,6 +85,30 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    with loops, the same with a forced cap of 16 hops (revert rate in
    (0.005, 0.95)), and a 3-spin model on a 6-site ring with a transverse
    field, whose diagonal update runs K2 at K=3.
+9. Parallel tempering on one card (``TemperingContainer``). (a) 64 betas
+   in [0.5, 1.5], 4 replicas each (R=256), on the 32x32 lattice,
+   Metropolis: grown, warm, then 64 sweep+swap steps
+   (``timesteps_sample(swap_freq=1)`` in chunks of 32), ``verify()``;
+   K2, K3 and K4 launched; ms per sweep+swap, the neighbour levels'
+   acceptance (min, median, max), host reads per chunk and of one swap
+   alone beside the chunk's label hook rounds (a read each), the chunk in turns against a bare chunk (the same
+   ``timesteps_sample`` entry with ``swap_freq`` past the chunk, so no
+   swap) at the same labels, device ms, events and busy share under the
+   profiler. (b) The same lattice at beta=1 with 64
+   transverse scales in [0.5, 2] (geometric), 4 replicas each, heat-bath:
+   K3-hb with per-replica tables and not K3. (c) Two 128-replica graphs at
+   beta=1, the second with a seeded random half of the edges' signs
+   flipped: sign patterns through the sweeps and swaps by
+   ``log_weight_delta``; K4 launched more often than in (a) by
+   ``fetch_xor``. (d) The 4-site heat-bath transverse ladder and the
+   signed ladder of ``tests/test_tempering_hetero.py`` against ED within
+   5 SE. (e) 9a's container, phase 5's graph and a ``Qmc`` saved, run,
+   loaded and run again: ``torch.equal``. (f) The 176x176 benchmark
+   lattice (N = 30,976, past K2's shared-memory limit) at beta=0.1, R=32,
+   ``verify()`` after each timestep, N x M below 2^30, K2 through its
+   global variant alone; then that variant against its plain version on
+   the arguments of one call recorded from one more sweep (``torch.equal``)
+   and timed there: its row in the ``kernels`` line.
 
 Then one JSON line of per-kernel results, a line with the card's name and
 power limit, and last a JSON line with the device. The script needs no
@@ -100,12 +127,15 @@ import warnings
 import numpy as np
 import torch
 
-from isingmontecarlo_tpu_torch import GraphState, LatticeIsing, lattice, ops
-from isingmontecarlo_tpu_torch.analysis import effective_sample_size
+from isingmontecarlo_tpu_torch import GraphState, LatticeIsing, checkpoint, lattice, ops
+from isingmontecarlo_tpu_torch.analysis import (
+    effective_sample_size, integrated_autocorrelation_time,
+)
 from isingmontecarlo_tpu_torch.classical import metropolis, worm
 from isingmontecarlo_tpu_torch.ops import _build
 from isingmontecarlo_tpu_torch.ops import checkerboard as cb
 from isingmontecarlo_tpu_torch.ops.diag_carry import tie_heavy_carry_inputs
+from isingmontecarlo_tpu_torch.parallel import TemperingContainer, tempering
 from isingmontecarlo_tpu_torch.sse import Qmc, QmcIsingGraph, multi_sweep, tfim_model
 from isingmontecarlo_tpu_torch.sse import cluster as sse_cluster
 from isingmontecarlo_tpu_torch.sse import diagonal as sse_diagonal
@@ -168,6 +198,8 @@ KERNEL_INFO = {
                                         "isingmontecarlo_tpu/ops/checkerboard.py:117"),
     "parity_bits": ("isingmontecarlo_tpu_torch/csrc/parity_bits.cu",
                     "isingmontecarlo_tpu/ops/parity_kernel.py:95"),
+    "parity_bits_global": ("isingmontecarlo_tpu_torch/csrc/parity_bits_global.cu",
+                           "isingmontecarlo_tpu/ops/parity_kernel.py:95"),
     "carry_decisions": ("isingmontecarlo_tpu_torch/csrc/carry_metropolis.cu",
                         "isingmontecarlo_tpu/ops/diag_carry.py:95"),
     "carry_decisions_heatbath": ("isingmontecarlo_tpu_torch/csrc/carry_heatbath.cu",
@@ -210,21 +242,41 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_rows(prof, what: str) -> list:
+    """The device-side rows (kernels, copies, memsets) of a finished
+    ``torch.profiler`` session. Raises if it holds none or their time sums
+    to 0: a device time is then not measured, and none is reported."""
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows or sum(e.self_device_time_total for e in rows) <= 0:
+        raise AssertionError(f"the profile of {what} holds no device time")
+    return rows
+
+
+def device_ms(fn, reps: int, attempts: int = 3) -> float:
     """Mean device milliseconds per call over ``reps`` calls after one
     warm-up: the kernels, copies and memsets they ran, summed from
     ``torch.profiler``, without the host's time between launches (which
-    CUDA events around a short kernel would measure instead)."""
+    CUDA events around a short kernel would measure instead). A session
+    that records no device time (the profiler drops a short session's
+    events now and then) is run again, up to ``attempts`` sessions in all,
+    and said so; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        try:
+            rows = device_rows(prof, f"{reps} calls")
+            return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+        except AssertionError:
+            if attempt == attempts:
+                raise
+            print(f"device_ms: profiler session {attempt} recorded no device time; "
+                  f"profiling again", flush=True)
 
 
 def exact_tfim_energy(edges, gamma: float, beta: float, nvars: int,
@@ -866,6 +918,7 @@ def check_kernels(dev) -> tuple[dict, dict]:
     rng = np.random.default_rng(0)
     full = kernel_inputs(rng, dev, K, M, R, N)
     results["parity_bits"] = check_parity(dev, rng, full["parity_bits"])
+    results["parity_bits_global"] = check_parity_global(dev, rng)
     carry_bounds = carry_chain_bounds(M)
     return {**results, **check_carry(dev, rng, full, carry_bounds)}, carry_bounds
 
@@ -973,8 +1026,7 @@ def profile_sweeps(g: QmcIsingGraph, label: str, nsweeps: int = 4) -> None:
     # Device-side events only (kernels, copies, memsets): an operator's row
     # repeats the time of the kernels it launched.
     rows = [(e.key, e.self_device_time_total / 1e3 / nsweeps, e.count / nsweeps)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            for e in device_rows(prof, label)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     wall_ms = 1e3 * wall / nsweeps
@@ -1229,8 +1281,7 @@ def profile_timesteps(g, nsteps: int, beta: float = RVB_BETA) -> tuple[dict, lis
             g.timestep(beta)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+    rows = sorted(device_rows(prof, f"{nsteps} timesteps"),
                   key=lambda e: -e.self_device_time_total)
     return {"wall_ms": 1e3 * wall / nsteps,
             "device_ms": sum(e.self_device_time_total for e in rows) / 1e3 / nsteps,
@@ -1461,7 +1512,7 @@ def profile_loop_update(q: Qmc) -> dict:
         t0 = time.perf_counter()
         run(stats)
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_rows(prof, "a loop update")
     hops_run = sse_loops.HOP_BLOCK * stats["host_reads"]
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     events = sum(e.count for e in rows)
@@ -1669,6 +1720,476 @@ def check_generic_physics(dev) -> None:
             raise AssertionError(f"{label}: K2 was not launched")
 
 
+# -- Phase 3: K2's global-memory variant ------------------------------------------------
+
+# K2 past the shared-memory limit (N > 29,056): K=2, the 192x192 benchmark
+# lattice's N, M as on the 32x32 slice, R=64.
+K2G_SHAPE = (2, 7000, 64, 36_864)
+
+
+def check_parity_global(dev, rng) -> dict:
+    """Phase 3 for K2's global-memory variant: equal to the plain version at
+    K = 1..6 on ragged shapes (called directly), and through ``parity_bits``
+    at K=2, M=7000, R=64, N=36,864, where only the global variant may
+    launch; timed there (device ms by ``torch.profiler``) beside the byte
+    bound over 3.35 TB/s and the plain version."""
+    ragged = ((37, 5, 9), (301, 48, 40), (130, 33, 37), (7, 1, 6), (1000, 64, 70))
+    for k in range(1, 7):
+        for m, r, n in ragged:
+            args = parity_inputs(rng, dev, k, m, r, n)
+            got, want = ops.parity_bits_global(*args), ops.parity_bits_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"parity_bits_global differs from its plain version at "
+                                     f"K={k}, M={m}, R={r}, N={n}")
+    k2, m2, r2, n2 = K2G_SHAPE
+    full = kernel_inputs(rng, dev, k2, m2, r2, n2)["parity_bits"]
+    ops.reset_launch_counts()
+    got = ops.parity_bits(*full)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = ops.parity_bits_plain(*full)
+    torch.cuda.synchronize()
+    if counts["parity_bits"] or counts["parity_bits_global"] != 1:
+        raise AssertionError(f"N={n2} did not take K2's global variant alone: {counts}")
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"parity_bits_global differs from its plain version at {K2G_SHAPE}")
+    err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    ms = device_ms(lambda: ops.parity_bits(*full), 20)
+    call_ms = cuda_ms(lambda: ops.parity_bits(*full), 20)
+    plain_ms = cuda_ms(lambda: ops.parity_bits_plain(*full), 2)
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound(nbytes(*full, *got)), "library_ms": None}
+    print(f"parity_bits_global: equal to plain at K = 1..6 on {list(ragged)} and at (K, M, R, "
+          f"N) = {K2G_SHAPE} through parity_bits (launches {counts['parity_bits_global']}, "
+          f"max_abs_err {err}); kernels {ms:.4f} ms on the device ({call_ms:.4f} ms a call, "
+          f"CUDA events), plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}, {nbytes(*full, *got) / 1e6:.2f} MB)", flush=True)
+    return res
+
+
+# -- Phase 9: parallel tempering on one card ---------------------------------------------
+
+# 9a: scripts/profile_tempering.py's ladder at the SSE main cell's width:
+# 64 betas in [0.5, 1.5], 4 replicas each (R=256), on the 32x32 lattice.
+PT_BETAS = np.linspace(0.5, 1.5, 64)
+PT_PER_BETA, PT_SEED = 4, 3
+PT_GROW, PT_WARM, PT_SAMPLE, PT_CHUNK = 48, 16, 64, 32
+# In turns: PT_ROUNDS rounds of (tempering, bare, bare, tempering) chunks of
+# PT_TURN sweeps; the host moves a sweep's wall by about 1 ms between chunks.
+PT_TURN, PT_ROUNDS = 16, 4
+# 9b: the transverse ladder, heat-bath.
+PT_SCALES = np.geomspace(0.5, 2.0, 64)
+# 9c: two 128-replica graphs at beta=1, the second with the signs of a
+# seeded random half of the edges flipped.
+PT_SIGNED_R, PT_FLIP_SEED = 128, 5
+# 9e: sweeps run before and after a checkpoint.
+CKPT_SWEEPS = 4
+# 9f: K2's global variant on a model. The cutoff starts at N and the leg
+# sort key needs N * M < 2^30, so N^2 < 2^30: L = 176 (N = 30,976, past
+# 29,056) keeps M below 2^30 / N = 34,664 while 1.5 n_max stays under the
+# floor M = N, which beta = 0.1 gives (0.34 ops a spin on the 16x16 and
+# 32x32 lattices in a CPU run of the port).
+BIG_L, BIG_R, BIG_BETA, BIG_STEPS = 176, 32, 0.1, 6
+
+
+def pair_acceptance(levels_before: np.ndarray, levels_t: np.ndarray,
+                    attempts: int) -> np.ndarray:
+    """Acceptance of each neighbour pair of beta levels: the sweeps in which
+    a replica moved from level i to i + 1, over the attempts on that pair.
+    ``levels_t [T, R]`` are the replicas' levels after each sweep's swap."""
+    prev = np.concatenate([levels_before[None], levels_t[:-1]])
+    up = (levels_t == prev + 1)
+    nlev = int(levels_before.max()) + 1
+    moved = np.zeros(nlev - 1)
+    for i in range(nlev - 1):
+        moved[i] = (up & (prev == i)).sum()
+    return moved / max(attempts, 1)
+
+
+def bare_chunk(tc, nsweeps: int) -> None:
+    """``nsweeps`` sweeps of ``tc``'s graph at its labels with no swap,
+    through the same entry and chunk bookkeeping as a tempering chunk (a
+    ``swap_freq`` past the chunk), so the two differ by the swaps alone."""
+    tc.timesteps_sample(nsweeps, swap_freq=nsweeps + 1, chunk=nsweeps)
+
+
+def tempering_chunk(tc, nsweeps: int) -> None:
+    """One tempering chunk of ``nsweeps`` sweep+swap steps."""
+    tc.timesteps_sample(nsweeps, chunk=nsweeps)
+
+
+def profile_per_sweep(run, nsweeps: int) -> dict:
+    """Wall and device ms and device events per sweep of ``run(nsweeps)``
+    under ``torch.profiler``, after a discarded one-sweep profile; the
+    busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run(1)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(nsweeps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof, f"{nsweeps} sweeps")
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / nsweeps
+    wall_ms = 1e3 * wall / nsweeps
+    return {"wall_ms_per_sweep_profiled": wall_ms, "device_ms_per_sweep": dev_ms,
+            "device_events_per_sweep": sum(e.count for e in rows) / nsweeps,
+            "busy_share": dev_ms / wall_ms}
+
+
+def tempering_in_turns(tc, chunk: int, rounds: int) -> dict:
+    """ms per sweep of a tempering chunk (a sweep and a swap each) and of a
+    bare chunk (:func:`bare_chunk`) at the same R and per-replica labels,
+    on the same graph, in
+    turns (T, B, B, T, ``rounds`` times), host clock around work that ends
+    in a synchronize."""
+    times = {"tempering": [], "bare": []}
+    for label in ("tempering", "bare", "bare", "tempering") * rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (tempering_chunk if label == "tempering" else bare_chunk)(tc, chunk)
+        torch.cuda.synchronize()
+        times[label].append(1e3 * (time.perf_counter() - t0) / chunk)
+    return times
+
+
+def reads_and_hook_rounds(fn) -> dict:
+    """Host reads of ``fn()`` (:func:`count_syncs`) beside its label hook
+    rounds (``hook_min`` launches), each of which reads one flag: the
+    reads that depend on the data."""
+    ops.reset_launch_counts()
+    reads = count_syncs(fn)
+    return {"reads": reads, "hook_rounds": ops.launch_counts()["hook_min"]}
+
+
+def beta_levels(betas, ladder) -> np.ndarray:
+    """Each replica's level on the beta ladder."""
+    b = betas.cpu().numpy()
+    return np.abs(b[:, None] - np.asarray(ladder, np.float32)[None, :]).argmin(axis=1)
+
+
+def run_tempering(tc, label: str, card: str, ladder=None) -> tuple[dict, dict]:
+    """Phases 9a-9c: grow ``tc`` (single timesteps until the cutoff is
+    stable), warm it, then the measured ``timesteps_sample(PT_SAMPLE,
+    swap_freq=1)`` in chunks of ``PT_CHUNK``, whose kernel launches are
+    returned; on a beta ``ladder`` the neighbour levels' acceptance from the
+    sampled betas; host reads per chunk, the in-turns times and the
+    profile; ``verify()`` after each stage."""
+    t0 = time.perf_counter()
+    tc.timesteps(PT_GROW)
+    tc.timesteps_sample(PT_WARM, chunk=PT_CHUNK)
+    torch.cuda.synchronize()
+    if not tc.verify():
+        raise AssertionError(f"{label}: verify() failed after the growth")
+    g = tc.graph
+    print(f"{label}: R={tc.replicas}, grown and warm in {time.perf_counter() - t0:.1f} s, "
+          f"cutoff {g.cutoff}, caps {g._cluster_caps}", flush=True)
+    betas_before = tc.betas
+    p0, swaps0 = tc._parity, tc.total_swaps
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    states, bet = tc.timesteps_sample(PT_SAMPLE, swap_freq=1, chunk=PT_CHUNK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    swaps = tc.total_swaps - swaps0
+    if states.shape != (PT_SAMPLE, tc.replicas, g.nvars) or not tc.verify():
+        raise AssertionError(f"{label}: bad samples {tuple(states.shape)} or verify() failed")
+    print(f"kernel launches in {label}'s {PT_SAMPLE} measured sweep+swap steps: {counts}",
+          flush=True)
+    reads = {"tempering": reads_and_hook_rounds(lambda: tempering_chunk(tc, PT_CHUNK)),
+             "bare": reads_and_hook_rounds(lambda: bare_chunk(tc, PT_CHUNK)),
+             "one_swap_alone": reads_and_hook_rounds(lambda: tempering._swap_labels(
+                 g.sse, g.model, tc.betas, tc.scales, tc.xors, tc._hb, tc.hetero,
+                 torch.rand(tc.replicas, device=tc.device), tc._parity))}
+    turns = tempering_in_turns(tc, PT_TURN, PT_ROUNDS)
+    prof = {k: profile_per_sweep(lambda n: run(tc, n), 4)
+            for k, run in (("tempering", tempering_chunk), ("bare", bare_chunk))}
+    if not tc.verify():
+        raise AssertionError(f"{label}: verify() failed after the measured runs")
+    out = {
+        "card": card, "R": tc.replicas, "cutoff": g.cutoff,
+        "ms_per_sweep_swap": 1e3 * secs / PT_SAMPLE,
+        "swaps_per_step": swaps / PT_SAMPLE,
+        "in_turns_ms_per_sweep": turns,
+        "swap_overhead_ms_medians": float(np.median(turns["tempering"])
+                                          - np.median(turns["bare"])),
+        "host_reads_per_chunk": reads, "chunk": PT_CHUNK, "profiled": prof,
+        "swap_device_ms": prof["tempering"]["device_ms_per_sweep"]
+        - prof["bare"]["device_ms_per_sweep"],
+        "swap_device_events": prof["tempering"]["device_events_per_sweep"]
+        - prof["bare"]["device_events_per_sweep"],
+        "mean_n": float(g.get_n().float().mean()),
+    }
+    if ladder is not None:
+        # Ranks 4i + 3 and 4i + 4 pair across levels i and i + 1 at odd parity.
+        attempts = sum(1 for i in range(PT_SAMPLE) if (p0 + i) % 2 == 1)
+        levels_t = np.stack([beta_levels(b, ladder) for b in bet])
+        acc = pair_acceptance(beta_levels(betas_before, ladder), levels_t, attempts)
+        out["pair_acceptance_min_median_max"] = [float(acc.min()), float(np.median(acc)),
+                                                 float(acc.max())]
+    print(f"{label}: " + json.dumps(out), flush=True)
+    return out, counts
+
+
+def run_tempering_homogeneous(dev, card: str) -> tuple:
+    """Phase 9a: the homogeneous beta ladder at full width, Metropolis."""
+    tc = TemperingContainer(lattice.bench_two_d_periodic(32), transverse=1.0,
+                            betas=PT_BETAS, replicas_per_beta=PT_PER_BETA, seed=PT_SEED,
+                            device=dev)
+    out, counts = run_tempering(tc, "9a homogeneous ladder", card, PT_BETAS)
+    if min(counts[k] for k in ("parity_bits", "carry_decisions", *SSE_K4)) <= 0 or \
+            counts["carry_decisions_heatbath"]:
+        raise AssertionError(f"9a did not run through K2, K3 and K4: {counts}")
+    return tc, out, counts
+
+
+def run_tempering_hetero(dev, card: str) -> tuple:
+    """Phase 9b: the transverse ladder at beta=1, heat-bath: K3-hb with
+    per-replica tables and the bond-count swap term; K3 must not launch."""
+    tc = TemperingContainer(lattice.bench_two_d_periodic(32), transverse=1.0,
+                            betas=[1.0] * len(PT_SCALES), replicas_per_beta=PT_PER_BETA,
+                            transverse_scales=PT_SCALES, seed=PT_SEED + 1, device=dev)
+    tc.set_enable_heatbath(True)
+    if not (tc.hetero and tc._hb.cum_max_w.dim() == 2):
+        raise AssertionError("9b: the ladder is not heterogeneous with per-replica tables")
+    out, counts = run_tempering(tc, "9b transverse ladder, heat-bath", card)
+    if min(counts[k] for k in ("parity_bits", "carry_decisions_heatbath", *SSE_K4)) <= 0 or \
+            counts["carry_decisions"]:
+        raise AssertionError(f"9b did not run through K2, K3-hb and K4 alone: {counts}")
+    got = np.sort(tc.class_scales[:, 1])
+    if not np.allclose(got, np.sort(np.repeat(PT_SCALES.astype(np.float32), PT_PER_BETA))):
+        raise AssertionError("9b: the transverse labels are no permutation of the ladder")
+    return tc, out, counts
+
+
+def run_tempering_signed(dev, card: str, take0_per_sweep_9a: float) -> tuple:
+    """Phase 9c: two 128-replica graphs at beta=1 in one container, the
+    second with a seeded random half of the edges' signs flipped: sign
+    patterns (``xors``) through the sweeps (K4's ``fetch_xor``) and swaps
+    by ``log_weight_delta``."""
+    edges = lattice.bench_two_d_periodic(32)
+    flip = np.random.default_rng(PT_FLIP_SEED).permutation(len(edges))[:len(edges) // 2]
+    signs = np.ones(len(edges))
+    signs[flip] = -1
+    flipped = [(e, j * s) for (e, j), s in zip(edges, signs)]
+    tc = tempering.new_with_rng(seed=PT_SEED + 2, device=dev)
+    tc.add_qmc_stepper(QmcIsingGraph(edges, 1.0, replicas=PT_SIGNED_R, seed=1, device=dev), 1.0)
+    tc.add_qmc_stepper(QmcIsingGraph(flipped, 1.0, replicas=PT_SIGNED_R, seed=2, device=dev),
+                       1.0)
+    if tc.replicas != 2 * PT_SIGNED_R or tc.xors is None:
+        raise AssertionError("9c: the signed ladder has no sign patterns")
+    if int(tc.xors.sum()) != PT_SIGNED_R * len(flip):
+        raise AssertionError("9c: the sign patterns do not mark the flipped edges")
+    out, counts = run_tempering(tc, "9c signed ladder", card)
+    take0_per_sweep = counts["take0"] / PT_SAMPLE
+    print(f"9c: take0 launches a sweep+swap {take0_per_sweep:g} against 9a's "
+          f"{take0_per_sweep_9a:g}: fetch_xor adds one in the diagonal update, one in the "
+          f"cluster update and two in each swap's log_weight_delta", flush=True)
+    if min(counts[k] for k in ("parity_bits", "carry_decisions", *SSE_K4)) <= 0 or \
+            take0_per_sweep < take0_per_sweep_9a + 4:
+        raise AssertionError(f"9c did not run through K2, K3 and K4 with fetch_xor: {counts}")
+    return tc, out, counts
+
+
+def ring(pattern) -> list:
+    """The 4-site ring with a per-bond coupling pattern
+    (``tests/test_tempering_hetero.py``'s ``_disorder_edges``)."""
+    return [(e, j * p) for (e, j), p in zip(lattice.chain(4, j=1.0), pattern)]
+
+
+def series_se(x: np.ndarray) -> float:
+    """Standard error of the mean of a correlated series ``[T]``."""
+    return float(x.std(ddof=1) * np.sqrt(integrated_autocorrelation_time(x) / len(x)))
+
+
+PHYS_R, PHYS_WARM, PHYS_STEPS = 256, 60, 200
+
+
+def check_tempering_physics(dev) -> None:
+    """Phase 9d: the 4-site cases of ``tests/test_tempering_hetero.py`` on
+    the card. (1) ``test_heatbath_hetero_matches_ed``: a transverse ladder
+    (scales 0.5, 1.5, beta=1.5) with heat-bath and no swaps; each rung's
+    mean energy (per-replica means, independent) within 5 SE of ED. (2)
+    ``test_signed_ladder_accepted_and_stationary``: the ring and its
+    frustrated twin (one edge's sign flipped) at beta=1 in one container,
+    a swap every second timestep; each label's mean energy (over the
+    replicas that hold it at each step, SE from the series' tau) within
+    5 SE of ED."""
+    L, beta, scales = 4, 1.5, [0.5, 1.5]
+    edges = lattice.chain(L, j=1.0)
+    tc = TemperingContainer(edges, transverse=1.0, betas=[beta, beta],
+                            replicas_per_beta=PHYS_R, transverse_scales=scales, seed=21,
+                            device=dev)
+    tc.set_enable_heatbath(True)
+    tc.timesteps(PHYS_WARM)
+    scale_r = tc.class_scales[:, 1].astype(np.float64)
+    offset_r = sum(abs(j) for _, j in edges) + L * scale_r
+    ns = []
+    for _ in range(PHYS_STEPS):
+        tc.timesteps(1)
+        ns.append(tc.graph.get_n())
+    e = -torch.stack(ns).double().cpu().numpy() / beta + offset_r  # [T, R]
+    for g in scales:
+        per_rep = e[:, np.isclose(scale_r, g)].mean(axis=0)
+        got, se = per_rep.mean(), per_rep.std(ddof=1) / np.sqrt(len(per_rep))
+        want = exact_tfim_energy(edges, g, beta, L)
+        print(f"9d heat-bath transverse ladder, scale {g}: E = {got:.5f} +- {se:.5f} (ED "
+              f"{want:.5f}, {abs(got - want) / se:.2f} SE)", flush=True)
+        if abs(got - want) >= 5 * se:
+            raise AssertionError(f"9d: rung {g} is not within 5 SE of ED")
+    if not tc.verify():
+        raise AssertionError("9d: verify() failed on the heat-bath ladder")
+
+    beta = 1.0
+    e_a, e_b = ring([1.0] * 4), ring([-1.0, 1.0, 1.0, 1.0])
+    tc = tempering.new_with_rng(seed=8, device=dev)
+    tc.add_qmc_stepper(QmcIsingGraph(e_a, 1.0, replicas=PHYS_R, seed=1, device=dev), beta)
+    tc.add_qmc_stepper(QmcIsingGraph(e_b, 1.0, replicas=PHYS_R, seed=2, device=dev), beta)
+    tc.timesteps(PHYS_WARM)
+    ns, labels = [], []
+    for i in range(PHYS_STEPS):
+        tc.timesteps(1)
+        if i % 2 == 0:
+            tc.tempering_step()
+        ns.append(tc.graph.get_n())
+        labels.append(tc.xors[:, 0] == 0)
+    e = -torch.stack(ns).double().cpu().numpy() / beta + tc.graph.model.offset
+    is_a = torch.stack(labels).cpu().numpy()
+    if tc.get_total_swaps() <= 0 or not tc.verify():
+        raise AssertionError("9d: the signed ladder did not swap or failed verify()")
+    for name, sel, edges_l in (("a (ring)", is_a, e_a), ("b (one edge flipped)", ~is_a, e_b)):
+        series = np.array([row[m].mean() for row, m in zip(e, sel)])
+        got, se = series.mean(), series_se(series)
+        want = exact_tfim_energy(edges_l, 1.0, beta, 4)
+        print(f"9d signed ladder, label {name}: E = {got:.5f} +- {se:.5f} (ED {want:.5f}, "
+              f"{abs(got - want) / se:.2f} SE), {tc.get_total_swaps()} swaps", flush=True)
+        if abs(got - want) >= 5 * se:
+            raise AssertionError(f"9d: label {name} is not within 5 SE of ED")
+
+
+def check_checkpoints(tc, g: QmcIsingGraph) -> None:
+    """Phase 9e: save 9a's container, phase 5's graph and a ``Qmc`` (that
+    graph through ``into_qmc`` with loops) with their generators; run
+    ``CKPT_SWEEPS`` sweeps on each; load each file and run the same sweeps;
+    the op strings, states and labels are ``torch.equal``."""
+    import tempfile
+    from pathlib import Path
+
+    q = g.into_qmc()
+    q.set_do_loop_updates(True)
+    q.timestep(GEN_BETA)
+    cases = {
+        "TemperingContainer (9a)": (
+            tc, lambda p: checkpoint.save_tempering(p, tc),
+            lambda p: checkpoint.load_tempering(p, device=tc.device),
+            lambda c: c.timesteps_sample(CKPT_SWEEPS, chunk=CKPT_SWEEPS),
+            lambda c: (*c.graph.sse.ops, c.graph.sse.state, c.betas, c.scales,
+                       torch.tensor([c._parity, c.total_swaps]))),
+        "QmcIsingGraph (phase 5)": (
+            g, g.save, lambda p: QmcIsingGraph.load(p, device=g.device),
+            lambda x: x.timesteps(CKPT_SWEEPS, 1.0), lambda x: (*x.sse.ops, x.sse.state)),
+        "Qmc (into_qmc, loops)": (
+            q, q.save, lambda p: Qmc.load(p, device=q.device),
+            lambda x: x.timesteps(CKPT_SWEEPS, GEN_BETA),
+            lambda x: (*x._ensure_sse().ops, x._ensure_sse().state)),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, (obj, save, load, run, parts)) in enumerate(cases.items()):
+            path = str(Path(tmp) / f"ckpt{i}.npz")
+            t0 = time.perf_counter()
+            save(path)
+            run(obj)
+            resumed = load(path)
+            run(resumed)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(parts(obj), parts(resumed))):
+                raise AssertionError(f"9e: the resumed {name} differs from the original")
+            print(f"9e {name}: saved, {CKPT_SWEEPS} sweeps, loaded, the same sweeps: op "
+                  f"strings, states and labels equal ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+
+
+def run_large_n(dev) -> dict:
+    """Phase 9f: an SSE model past K2's shared-memory limit: the L x L
+    benchmark lattice at L = ``BIG_L`` (N = 30,976), beta = ``BIG_BETA``,
+    R = ``BIG_R``, ``BIG_STEPS`` timesteps with ``verify()`` after each;
+    N * M stays below 2^30 (the leg sort key). Returns the launches, of
+    which K2's must all be the global variant's, and the kernel's row from
+    :func:`check_recorded_parity`."""
+    edges = lattice.bench_two_d_periodic(BIG_L)
+    n = BIG_L * BIG_L
+    if ops.parity_kernel.k2_variant(n) != "global":
+        raise AssertionError(f"N={n} does not take K2's global variant")
+    t0 = time.perf_counter()
+    g = QmcIsingGraph(edges, 1.0, replicas=BIG_R, seed=17, device=dev)
+    ops.reset_launch_counts()
+    for _ in range(BIG_STEPS):
+        g.timestep(BIG_BETA)
+        if n * g.cutoff >= 2**30:
+            raise AssertionError(f"9f: N * M = {n * g.cutoff} reached 2^30")
+        if not g.verify():
+            raise AssertionError("9f: verify() failed")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    secs = time.perf_counter() - t0
+    print(f"9f {BIG_L}x{BIG_L} benchmark lattice (N={n}), beta={BIG_BETA}, R={BIG_R}: "
+          f"{BIG_STEPS} timesteps in {secs:.1f} s, verify() after each, cutoff {g.cutoff} "
+          f"(N*M = {n * g.cutoff}, limit {2**30}), mean n "
+          f"{float(g.get_n().float().mean()):.1f}; launches {counts}", flush=True)
+    if counts["parity_bits"] or counts["parity_bits_global"] <= 0:
+        raise AssertionError(f"9f: K2 did not run through its global variant alone: {counts}")
+    return counts, check_recorded_parity(g)
+
+
+def check_recorded_parity(g: QmcIsingGraph) -> dict:
+    """Phase 9f: K2's global variant against its plain version on the
+    arguments of one real call, recorded from one more sweep of the grown
+    9f graph, and timed there (device ms by ``torch.profiler``, CUDA events
+    for a call, the plain version, the byte bound): the numbers of its row
+    in the ``kernels`` line."""
+    recorded = []
+    saved = sse_diagonal.parity_bits
+
+    def recorder(*args):
+        if not recorded:
+            recorded.extend(a.clone() for a in args)
+        return saved(*args)
+
+    sse_diagonal.parity_bits = recorder
+    try:
+        g.sse, _, _, _ = multi_sweep(g.sse, BIG_BETA, g.model, 1, lambda: g.draws,
+                                     cluster_caps=g._cluster_caps, **g._diag_args())
+    finally:
+        sse_diagonal.parity_bits = saved
+    if not recorded:
+        raise AssertionError("9f: no call of parity_bits recorded")
+    got, want = ops.parity_bits_global(*recorded), ops.parity_bits_plain(*recorded)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("9f: parity_bits_global differs from its plain version on the "
+                             "recorded call")
+    err = max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(got, want))
+    ms = device_ms(lambda: ops.parity_bits_global(*recorded), 20)
+    call_ms = cuda_ms(lambda: ops.parity_bits_global(*recorded), 20)
+    plain_ms = cuda_ms(lambda: ops.parity_bits_plain(*recorded), 1)
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound(nbytes(*recorded, *got)), "library_ms": None}
+    print(f"parity_bits_global on the recorded 9f call {[tuple(a.shape) for a in recorded]}: "
+          f"equal to plain (max_abs_err {err}); kernels {ms:.4f} ms on the device "
+          f"({call_ms:.4f} ms a call, CUDA events), plain {plain_ms:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}, "
+          f"{nbytes(*recorded, *got) / 1e6:.2f} MB)", flush=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1761,6 +2282,20 @@ def main() -> None:
     run_generic_xxz(dev, card)
     phase("8c. generic engine: XXZ chains and a 3-spin model against ED")
     check_generic_physics(dev)
+
+    phase("9a. tempering: 64-beta ladder x 4 replicas on the 32x32 lattice, Metropolis")
+    tc_a, _, counts = run_tempering_homogeneous(dev, card)
+    phase("9b. tempering: 64-rung transverse ladder x 4 replicas, heat-bath")
+    run_tempering_hetero(dev, card)
+    phase("9c. tempering: signed ladder, two 128-replica graphs on the 32x32 lattice")
+    run_tempering_signed(dev, card, counts["take0"] / PT_SAMPLE)
+    phase("9d. tempering physics: 4-site heat-bath and signed ladders against ED")
+    check_tempering_physics(dev)
+    phase("9e. checkpoints: save, run, load, run again")
+    check_checkpoints(tc_a, g_met)
+    phase(f"9f. K2's global variant on a model: {BIG_L}x{BIG_L} benchmark lattice")
+    counts, kernel_results["parity_bits_global"] = run_large_n(dev)
+    launches["parity_bits_global"] = counts["parity_bits_global"]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,7 +1,8 @@
 """isingmontecarlo_tpu_torch — the classical engine, the SSE
-transverse-field Ising engine and the generic k-local SSE engine of
-``isingmontecarlo_tpu`` on PyTorch, with
-hand-written CUDA kernels for an NVIDIA Hopper GPU.
+transverse-field Ising engine, the generic k-local SSE engine, parallel
+tempering on one device, checkpoints and the analysis helpers of
+``isingmontecarlo_tpu`` on PyTorch, with hand-written CUDA kernels for an
+NVIDIA Hopper GPU.
 
 The package imports ``torch`` and numpy only. Constructors and entry points
 run on ``device="cuda"`` unless the caller passes another device; a CPU
@@ -9,9 +10,13 @@ tensor runs each kernel's plain PyTorch version and a CUDA tensor the kernel
 (built from ``csrc/`` at first use).
 """
 
-from isingmontecarlo_tpu_torch import analysis, classical, lattice, ops, sse
+from isingmontecarlo_tpu_torch import (
+    analysis, checkpoint, classical, lattice, ops, parallel, sse,
+)
 from isingmontecarlo_tpu_torch.classical import GraphState, LatticeIsing
+from isingmontecarlo_tpu_torch.parallel import TemperingContainer
 from isingmontecarlo_tpu_torch.sse import Qmc, QmcIsingGraph, tfim_model
 
-__all__ = ["GraphState", "LatticeIsing", "Qmc", "QmcIsingGraph", "analysis", "classical",
-           "lattice", "ops", "sse", "tfim_model"]
+__all__ = ["GraphState", "LatticeIsing", "Qmc", "QmcIsingGraph", "TemperingContainer",
+           "analysis", "checkpoint", "classical", "lattice", "ops", "parallel", "sse",
+           "tfim_model"]

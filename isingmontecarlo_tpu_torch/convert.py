@@ -1,6 +1,6 @@
-"""Carry the JAX package's models, tables and states across as numpy arrays,
-so both packages compute from the same inputs. The JAX PRNG key is not
-carried."""
+"""Carry the JAX package's models, tables, states and tempering labels
+across as numpy arrays, so both packages compute from the same inputs. The
+JAX PRNG key is not carried."""
 
 from __future__ import annotations
 
@@ -88,3 +88,32 @@ def qmc_from_numpy(nvars: int, interactions, offset: float, *, bond, inputs, out
     q._sse = sse_state_from_numpy(bond=bond, inputs=inputs, outputs=outputs, state=state,
                                   device=device)
     return q
+
+
+def tempering_from_numpy(edges, transverse: float, longitudinal: float = 0.0, *, bond,
+                         inputs, outputs, state, betas, scales=None, xors=None,
+                         parity: int = 0, total_swaps: int = 0, seed: int = 0,
+                         device: torch.device | str):
+    """A port :class:`~isingmontecarlo_tpu_torch.parallel.TemperingContainer`
+    from a JAX container's data: its model (``edges``, fields), the op
+    string's and state's arrays, the labels ``betas f32[R]``, ``scales
+    f32[R, NB]`` (ones when None) and ``xors i32[R, NB]`` (None or empty:
+    unsigned), the swap ``parity`` and count. Both packages then compute the
+    same chain on the same draws. The generator starts from ``seed``."""
+    from isingmontecarlo_tpu_torch.parallel import TemperingContainer
+
+    betas = np.asarray(betas, np.float32)
+    tc = TemperingContainer(edges, transverse, longitudinal, betas=betas, seed=seed,
+                            device=device)
+    tc.graph.sse = sse_state_from_numpy(bond=bond, inputs=inputs, outputs=outputs,
+                                        state=state, device=device)
+    tc.graph.draws.generator.manual_seed(seed)
+    if scales is not None:
+        sc = np.asarray(scales, np.float32)
+        tc.scales = _t(sc, torch.float32, device)
+        tc.hetero = bool(np.max(np.abs(sc - 1.0)) > 1e-12)
+    if xors is not None and np.size(xors):
+        tc.xors = _t(xors, torch.int32, device)
+    tc._parity = int(parity)
+    tc.total_swaps = int(total_swaps)
+    return tc

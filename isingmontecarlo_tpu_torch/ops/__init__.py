@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) for the TPU kernels of
-the classical checkerboard path (K1, in a shared-memory and a global-memory
-variant) and the SSE timestep (K4's gather also takes the hook-and-compress
-steps around it, as three entry points), each beside its plain PyTorch
-version. The library builds from ``csrc/`` at
-first use (see :mod:`._build`)."""
+the classical checkerboard path (K1) and the SSE timestep (K2, K3, K3-hb,
+K4), each beside its plain PyTorch version. K1 and K2 each have a
+shared-memory and a global-memory variant; K4's gather also takes the
+hook-and-compress steps around it, as three entry points. The library
+builds from ``csrc/`` at first use (see :mod:`._build`)."""
 
 from isingmontecarlo_tpu_torch.ops.checkerboard import (
     checkerboard_multi_sweep,
@@ -18,6 +18,7 @@ from isingmontecarlo_tpu_torch.ops.diag_carry import (
 )
 from isingmontecarlo_tpu_torch.ops.parity_kernel import (
     parity_bits,
+    parity_bits_global,
     parity_bits_plain,
 )
 from isingmontecarlo_tpu_torch.ops.take_kernel import (
@@ -31,7 +32,8 @@ from isingmontecarlo_tpu_torch.ops.take_kernel import (
 
 # The wrappers whose ``launches`` count the kernel launches of a run.
 KERNELS = (checkerboard_multi_sweep, checkerboard_multi_sweep_global, parity_bits,
-           carry_decisions, carry_decisions_heatbath, take0, hook_min, pointer_jump)
+           parity_bits_global, carry_decisions, carry_decisions_heatbath, take0, hook_min,
+           pointer_jump)
 
 
 def reset_launch_counts() -> None:
@@ -56,6 +58,7 @@ __all__ = [
     "hook_min_plain",
     "launch_counts",
     "parity_bits",
+    "parity_bits_global",
     "parity_bits_plain",
     "pointer_jump",
     "pointer_jump_plain",

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "ising_pointer_jump": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # state, v_idx, tog, vq, seg (scratch), pb, sb, K, M, R, N, seg_len, stream
     "ising_parity_bits": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same for the global-memory variant
+    "ising_parity_bits_global": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # n0, u0, idp, dgp, num_ins, num_rem, insert, remove, M, R, stream
     "ising_carry_metropolis": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # n0, u0, idp, dgp, insw, bwt, insert, remove, M, R, stream

@@ -3,10 +3,13 @@
 Replaces ``isingmontecarlo_tpu/ops/parity_kernel.py::parity_bits``. The
 interface takes the p=0 state unpacked (``bool[R, N]``) and marks sentinel
 legs by a variable outside ``[0, N)``; the 32-bit word packing is internal
-to the CUDA kernel, ``csrc/parity_bits.cu`` (a scan over segments of M: a
+to the CUDA kernels: ``csrc/parity_bits.cu`` (a scan over segments of M: a
 warp per 32 replicas and segment, carry in shared memory, the segments'
-prefix in one linear pass). Any number of legs K. See that file for what
-bounds it on the card.
+prefix in one linear pass) for the N whose carry a CTA's shared memory
+holds, and ``csrc/parity_bits_global.cu`` (the same passes, a thread per
+replica and segment, carry in global memory) for any N; :func:`k2_variant`
+picks. Any number of legs K. See those files for what bounds them on the
+card.
 """
 
 from __future__ import annotations
@@ -28,6 +31,17 @@ _WARPS_PER_SM = 16
 # warp's carry and its replica group's packed state: 2 * 32 * ceil(N / 32)
 # words in the 232,448 bytes an H100 block can have.
 MAX_SHARED_BYTES = 232_448
+# The global variant's scratch (an N-bit vector per segment and replica, and
+# the packed state) is kept within this many bytes, inside the 50 MB L2.
+GLOBAL_SCRATCH_BYTES = 1 << 25
+
+
+def k2_variant(N: int, max_shared_bytes: int = MAX_SHARED_BYTES) -> str:
+    """K2's variant for ``N`` spins: ``"shared"`` (``csrc/parity_bits.cu``)
+    when a CTA's ``max_shared_bytes`` hold two warps' N-bit carries, 2 * 32 *
+    ceil(N/32) words (on an H100 every N up to 29,056), else ``"global"``
+    (``csrc/parity_bits_global.cu``)."""
+    return "shared" if 2 * 32 * 4 * -(-N // 32) <= max_shared_bytes else "global"
 
 
 def segment_length(M: int, R: int, n_sms: int) -> int:
@@ -36,6 +50,17 @@ def segment_length(M: int, R: int, n_sms: int) -> int:
     segment warps over the ``ceil(R / 32)`` replica groups."""
     nseg = max(1, _WARPS_PER_SM * n_sms // -(-R // 32))
     return 4 * -(-M // (4 * nseg))
+
+
+def global_segment_length(M: int, R: int, N: int, n_sms: int) -> int:
+    """Slots of one segment of the global variant: about ``_WARPS_PER_SM *
+    n_sms`` warps of threads, one a (replica, segment), with the scratch of
+    ``nseg + 1`` N-bit vectors a replica within :data:`GLOBAL_SCRATCH_BYTES`
+    and at most 65,535 segments (a grid dimension)."""
+    row = 4 * -(-N // 32) * R
+    nseg = min(M, 65_535, -(-_WARPS_PER_SM * n_sms * 32 // R),
+               GLOBAL_SCRATCH_BYTES // row - 1)
+    return -(-M // max(1, nseg))
 
 
 def parity_bits_plain(state, v_idx, tog, vq):
@@ -80,7 +105,8 @@ def parity_bits(state: torch.Tensor, v_idx: torch.Tensor, tog: torch.Tensor,
     R]``.
 
     A CPU tensor takes :func:`parity_bits_plain`; a CUDA tensor launches the
-    kernel (counted in ``parity_bits.launches``) or raises."""
+    kernel (counted in ``parity_bits.launches``), or for an N that
+    :func:`k2_variant` sends there :func:`parity_bits_global`, or raises."""
     K, M, R = v_idx.shape
     N = state.shape[1]
     dev = state.device
@@ -90,10 +116,9 @@ def parity_bits(state: torch.Tensor, v_idx: torch.Tensor, tog: torch.Tensor,
     _build.check(vq, "vq", torch.int32, (K, M, R), dev)
     if not _build.use_kernel(dev):
         return parity_bits_plain(state, v_idx, tog, vq)
+    if k2_variant(N) == "global":
+        return parity_bits_global(state, v_idx, tog, vq)
     W = -(-N // 32)
-    if 2 * W * 32 * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"N={N}: a CTA of the parity kernel holds 2 * 32 * ceil(N/32) "
-                         f"words in {MAX_SHARED_BYTES} bytes of shared memory")
     seg_len = segment_length(M, R, _build.sm_count(dev))
     nseg = -(-M // seg_len)
     # Rows 0..nseg-1: the segments' prefixes; row nseg: the packed state.
@@ -106,4 +131,33 @@ def parity_bits(state: torch.Tensor, v_idx: torch.Tensor, tog: torch.Tensor,
     return pb, sb
 
 
+def parity_bits_global(state: torch.Tensor, v_idx: torch.Tensor, tog: torch.Tensor,
+                       vq: torch.Tensor):
+    """:func:`parity_bits` through the global-memory variant, for any N.
+    A CPU tensor takes :func:`parity_bits_plain`; a CUDA tensor launches
+    ``csrc/parity_bits_global.cu`` (counted in
+    ``parity_bits_global.launches``) or raises."""
+    K, M, R = v_idx.shape
+    N = state.shape[1]
+    dev = state.device
+    _build.check(state, "state", torch.bool, (R, N), dev)
+    _build.check(v_idx, "v_idx", torch.int32, (K, M, R), dev)
+    _build.check(tog, "tog", torch.bool, (K, M, R), dev)
+    _build.check(vq, "vq", torch.int32, (K, M, R), dev)
+    if not _build.use_kernel(dev):
+        return parity_bits_plain(state, v_idx, tog, vq)
+    seg_len = global_segment_length(M, R, N, _build.sm_count(dev))
+    nseg = -(-M // seg_len)
+    # Rows 0..nseg-1: the segments' carries, then prefixes; row nseg: the
+    # packed state.
+    seg = torch.zeros((nseg + 1, -(-N // 32), R), dtype=torch.int32, device=dev)
+    pb = torch.empty((K, M, R), dtype=torch.bool, device=dev)
+    sb = torch.empty((K, M, R), dtype=torch.bool, device=dev)
+    _build.launch("ising_parity_bits_global", state, v_idx, tog, vq, seg, pb, sb,
+                  K, M, R, N, seg_len)
+    parity_bits_global.launches += 1
+    return pb, sb
+
+
 parity_bits.launches = 0
+parity_bits_global.launches = 0

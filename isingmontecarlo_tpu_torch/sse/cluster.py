@@ -32,7 +32,7 @@ from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import (
     SORT_BIG, OpString, op_vars, sorted_legs, substate_index,
 )
-from isingmontecarlo_tpu_torch.sse.tables import bond_fetch
+from isingmontecarlo_tpu_torch.sse.tables import bond_fetch, fetch_xor
 
 # Pointer jumps per hook round. Root ids depend on this schedule, and the
 # cluster uniforms are indexed by root id, so it must equal the JAX
@@ -210,26 +210,31 @@ def root_flip_prob(lab_in, lab_out, valid_op, w_cur, w_flip, SL: int,
 
 def cluster_update(ops: OpString, state: torch.Tensor, draw_uniform: Callable,
                    model: BondModel, prob: float = 0.5,
-                   label_cap: int | None = None, edge_cap: int | None = None):
+                   label_cap: int | None = None, edge_cap: int | None = None,
+                   bond_xor: torch.Tensor | None = None):
     """Flip every spacetime cluster with probability ``prob`` times its
     weight ratio (``flip_each_cluster_rng``, ``cluster.rs:18-172``): build
     the :func:`segment_graph` and run :func:`cluster_update_impl` on it.
     Returns ``(ops, state)``."""
     sg = segment_graph(ops, model)
     return cluster_update_impl(ops, state, draw_uniform, model, prob, label_cap,
-                               edge_cap, sg)
+                               edge_cap, sg, bond_xor)
 
 
 def cluster_update_impl(ops: OpString, state: torch.Tensor,
                         draw_uniform: Callable, model: BondModel,
                         prob: float, label_cap: int | None,
-                        edge_cap: int | None, sg: SegGraph):
+                        edge_cap: int | None, sg: SegGraph,
+                        bond_xor: torch.Tensor | None = None):
     """Flip every cluster with probability ``prob`` times its weight ratio.
 
     ``draw_uniform(shape)`` returns the per-root uniforms ``f32[SL, R]``
     (the JAX package draws ``uniform(fold_in(key, 0), (SL, R))``). With
     ``label_cap`` set, a cap overflow skips the update (all-False flips),
-    as in the JAX sweep path. Returns ``(ops, state)``."""
+    as in the JAX sweep path. ``bond_xor i32[R, NB]`` looks each replica's
+    weights up under its sign pattern (``diagonal.py``); the spins stay
+    physical, and the XOR commutes with the cluster's leg flip. Returns
+    ``(ops, state)``."""
     M, R = ops.bond.shape
     K = ops.max_legs
     KM = K * M
@@ -237,6 +242,9 @@ def cluster_update_impl(ops: OpString, state: torch.Tensor,
     b = ops.bond.clamp(min=0)
     si = substate_index(ops.inputs)
     so = substate_index(ops.outputs)
+    if bond_xor is not None:
+        x = fetch_xor(bond_xor, b)
+        si, so = si ^ x, so ^ x
     legmask = (1 << bond_fetch(model.arity(), b)) - 1
     bl = b.long()
     w_cur = model.full_w[bl, si.long(), so.long()]

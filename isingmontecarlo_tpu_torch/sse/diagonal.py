@@ -22,6 +22,12 @@ kernel K2), and the only sequential piece left is the carry of ``n``
 (kernel K3, or K3-hb for heat-bath). The uniforms ``u f32[3, M, R]`` are an
 argument, drawn by the caller in the JAX package's shape: ``u[0]`` accepts,
 ``u[1]`` picks the proposal bond, ``u[2]`` is the heat-bath weight test.
+
+Sign patterns (``bond_xor i32[R, NB]``, the signed tempering ladders): a
+bond whose coupling sign is flipped has the base table with its substate
+columns permuted by an XOR mask, ``w_flip(b, s) = w(b, s ^ m_b)``
+(``isingmontecarlo_tpu/sse/diagonal.py:67-80``), so each replica looks its
+weights up at ``s ^ bond_xor[r, b]``; the stored spins stay physical.
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ from isingmontecarlo_tpu_torch.ops.diag_carry import (
 from isingmontecarlo_tpu_torch.ops.parity_kernel import parity_bits
 from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import OpString, op_count, substate_index
-from isingmontecarlo_tpu_torch.sse.tables import bond_fetch_multi, searchsorted_left
+from isingmontecarlo_tpu_torch.sse.tables import (
+    bond_fetch_multi, fetch_xor, searchsorted_left,
+)
 
 
 class HeatBathTables(NamedTuple):
@@ -63,9 +71,11 @@ def make_heatbath_tables(model: BondModel,
 
 def _parallel_weights(ops: OpString, state: torch.Tensor, u1: torch.Tensor,
                       model: BondModel, hb: HeatBathTables | None = None,
-                      heatbath: bool = False):
+                      heatbath: bool = False, bond_xor: torch.Tensor | None = None):
     """Proposal bond ``b_new i32[M, R]``, its leg spins ``bits_new
-    bool[K, M, R]`` and its weight ``w_new f32[M, R]`` for every slot.
+    bool[K, M, R]`` and its weight ``w_new f32[M, R]`` for every slot, and
+    the current op's weight ``w_cur f32[M, R]`` (under the replica's sign
+    pattern, when ``bond_xor`` is given).
 
     The proposal is uniform over bonds (Metropolis) or drawn from the
     max-weight distribution (heat-bath), from the same ``u1`` either way.
@@ -87,20 +97,28 @@ def _parallel_weights(ops: OpString, state: torch.Tensor, u1: torch.Tensor,
     tog = ops.inputs != ops.outputs
     pb, sb = parity_bits(state.contiguous(), v_idx, tog, vq)
     bits_new = sb ^ pb  # sentinel legs are 0 by construction
-    w_new = model.diag_w[b_new.long(), substate_index(bits_new).long()]
-    return b_new, bits_new, w_new
+    si_new = substate_index(bits_new)
+    si_cur = substate_index(ops.inputs)
+    if bond_xor is not None:
+        x_new, x_cur = fetch_xor(bond_xor, b_new, b_safe)
+        si_new, si_cur = si_new ^ x_new, si_cur ^ x_cur
+    w_new = model.diag_w[b_new.long(), si_new.long()]
+    w_cur = model.diag_w[b_safe.long(), si_cur.long()]
+    return b_new, bits_new, w_new, w_cur
 
 
 def diagonal_update(ops: OpString, state: torch.Tensor, beta,
                     u: torch.Tensor, model: BondModel,
                     hb: HeatBathTables | None = None, heatbath: bool = False,
-                    bond_scale: torch.Tensor | None = None) -> OpString:
+                    bond_scale: torch.Tensor | None = None,
+                    bond_xor: torch.Tensor | None = None) -> OpString:
     """One diagonal sweep with uniforms ``u f32[3, M, R]``: Metropolis, or
     heat-bath with the tables ``hb`` when ``heatbath``.
 
     ``state bool[R, N]`` is the p=0 state, ``beta`` a float or ``f32[R]``;
     ``bond_scale f32[R, NB]`` multiplies every bond's matrix elements per
-    replica (heat-bath then needs per-replica tables). Bit-identical to
+    replica (heat-bath then needs per-replica tables), and ``bond_xor
+    i32[R, NB]`` sets each replica's sign pattern. Bit-identical to
     ``_diagonal_update_fast`` given the same uniforms and tables: the same
     f32 expressions in the same order (``num = (beta * NB) * w``)."""
     if heatbath:
@@ -115,12 +133,12 @@ def diagonal_update(ops: OpString, state: torch.Tensor, beta,
     beta = beta.expand(R) if beta.dim() == 0 else beta
 
     n0 = op_count(ops)
-    b_new, bits_new, w_new = _parallel_weights(ops, state, u[1], model, hb, heatbath)
+    b_new, bits_new, w_new, w_cur = _parallel_weights(ops, state, u[1], model, hb,
+                                                      heatbath, bond_xor)
 
     is_ident = ops.bond < 0
     is_diag = (ops.inputs == ops.outputs).all(dim=0) & ~is_ident
     b_safe = ops.bond.clamp(min=0)
-    w_cur = model.diag_w[b_safe.long(), substate_index(ops.inputs).long()]
     if bond_scale is not None:
         rows = torch.arange(R, device=u.device)[None, :]
         scale_new = bond_scale[rows, b_new.long()]

@@ -83,6 +83,9 @@ class Draws(Protocol):
     def loops(self) -> _loops.LoopDraws:
         """The draws of the timestep's directed-loop update."""
 
+    def swap(self, shape: tuple[int]) -> torch.Tensor:
+        """Uniforms ``f32[R]`` of a tempering swap after the timestep."""
+
 
 class GeneratorDraws:
     """:class:`Draws` from a ``torch.Generator`` on one device."""
@@ -109,6 +112,9 @@ class GeneratorDraws:
     def loops(self):
         return _loops.GeneratorLoopDraws(self.generator)
 
+    def swap(self, shape):
+        return self._uniform(shape)
+
 
 def resample_free_spins(sse: SseState, fresh: torch.Tensor, model: BondModel,
                         has_op: torch.Tensor | None = None) -> SseState:
@@ -129,7 +135,8 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
           do_cluster: bool = True, hb: HeatBathTables | None = None,
           heatbath: bool = False, bond_scale: torch.Tensor | None = None,
           rvb_tables: _rvb.RvbTables | None = None, n_rvb: int = 0,
-          rvb_compact: int | None = None) -> tuple[SseState, torch.Tensor]:
+          rvb_compact: int | None = None,
+          bond_xor: torch.Tensor | None = None) -> tuple[SseState, torch.Tensor]:
     """One timestep (``qmc_ising.rs:644-795`` minus cutoff growth). Returns
     ``(state, rvb_successes i32[R])``, zeros when RVB is off.
 
@@ -140,13 +147,19 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
     ``hb``, ``heatbath`` and ``bond_scale`` go to :func:`diagonal_update`.
     ``n_rvb > 0`` runs that many RVB updates after the diagonal update,
     on the occupied-slot prefix of ``rvb_compact`` rows when given
-    (:func:`rvb.rvb_sweep`)."""
+    (:func:`rvb.rvb_sweep`). ``bond_xor i32[R, NB]`` gives each replica a
+    sign pattern (the signed tempering ladders; see ``diagonal.py``) in the
+    diagonal and cluster updates; RVB refuses it, since its tables hold the
+    base model's signs (``isingmontecarlo_tpu/sse/ising.py:124-126``)."""
     if n_rvb > 0 and rvb_tables is None:
         raise ValueError("RVB updates need rvb_tables (rvb.make_rvb_tables)")
+    if n_rvb > 0 and bond_xor is not None:
+        raise ValueError("RVB updates do not support per-replica sign patterns (bond_xor)")
     ops, state = sse
     M, R = ops.bond.shape
     ops = diagonal_update(ops, state, beta, draws.diagonal((3, M, R)), model,
-                          hb=hb, heatbath=heatbath, bond_scale=bond_scale)
+                          hb=hb, heatbath=heatbath, bond_scale=bond_scale,
+                          bond_xor=bond_xor)
     if n_rvb > 0:
         ops, state, succ = _rvb.rvb_sweep(ops, state, draws.rvb(n_rvb), model,
                                           rvb_tables, n_rvb, compact_cutoff=rvb_compact)
@@ -164,7 +177,7 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
     sg = _cluster.segment_graph(ops, model)
     has_op = (sg.head_f < ops.max_legs * M).T
     ops, state = _cluster.cluster_update_impl(
-        ops, state, draws.cluster, model, 0.5, lc, ec, sg
+        ops, state, draws.cluster, model, 0.5, lc, ec, sg, bond_xor
     )
     return resample_free_spins(
         SseState(ops, state), draws.free_spins((R, model.nvars)), model,
@@ -179,7 +192,7 @@ def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
                 hb: HeatBathTables | None = None, heatbath: bool = False,
                 bond_scale: torch.Tensor | None = None,
                 rvb_tables: _rvb.RvbTables | None = None, n_rvb: int = 0,
-                rvb_compact: int | None = None):
+                rvb_compact: int | None = None, bond_xor: torch.Tensor | None = None):
     """``nsweeps`` timesteps; ``next_draws()`` gives each one's draws.
 
     The cluster update runs on every ``cluster_every``-th timestep only
@@ -192,7 +205,8 @@ def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
         sse, s = sweep(sse, beta, model, next_draws(), cluster_caps=cluster_caps,
                        do_cluster=i % cluster_every == cluster_every - 1,
                        hb=hb, heatbath=heatbath, bond_scale=bond_scale,
-                       rvb_tables=rvb_tables, n_rvb=n_rvb, rvb_compact=rvb_compact)
+                       rvb_tables=rvb_tables, n_rvb=n_rvb, rvb_compact=rvb_compact,
+                       bond_xor=bond_xor)
         if n_rvb > 0:
             succ += s
         ns.append(_ops.op_count(sse.ops))
@@ -551,6 +565,24 @@ class QmcIsingGraph:
         """ASCII worldline dump of one replica (``qmc_ising.rs:489-494``)."""
         _debug.debug_print_diagonal(self.sse.ops, self.sse.state, self.model,
                                     replica, file=sys.stdout)
+
+    # -- checkpoints (SerializeQmcGraph, qmc_ising.rs:1000-1159) -------------
+
+    def save(self, path: str, *, strip_rng: bool = False) -> None:
+        """Write a checkpoint in the JAX package's ``.npz`` layout
+        (:mod:`isingmontecarlo_tpu_torch.checkpoint`)."""
+        from isingmontecarlo_tpu_torch import checkpoint as _ckpt
+
+        _ckpt.save_qmc_ising(path, self, strip_rng=strip_rng)
+
+    @classmethod
+    def load(cls, path: str, *, seed: int | None = None,
+             device: torch.device | str = "cuda") -> "QmcIsingGraph":
+        """A graph from :meth:`save`'s file or the JAX package's; ``seed``
+        reseeds the generator."""
+        from isingmontecarlo_tpu_torch import checkpoint as _ckpt
+
+        return _ckpt.load_qmc_ising(path, seed=seed, device=device)
 
     # -- autocorrelations (QmcAutoCorrelations, autocorrelations.rs:6-97) ---
 

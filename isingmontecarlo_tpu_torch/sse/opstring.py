@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from isingmontecarlo_tpu_torch.sse.model import BondModel
-from isingmontecarlo_tpu_torch.sse.tables import bond_fetch_multi
+from isingmontecarlo_tpu_torch.sse.tables import bond_fetch_multi, fetch_xor
 
 # Sort key of legs that belong to no variable: above every real key.
 SORT_BIG = 2**30
@@ -138,13 +138,56 @@ def substate_index(bits: torch.Tensor) -> torch.Tensor:
     return (bits.to(torch.int32) * w).sum(dim=0, dtype=torch.int32)
 
 
-def op_weights(ops: OpString, model: BondModel) -> torch.Tensor:
-    """f32[M, R]: matrix element of every op (1.0 for identities)."""
-    b = ops.bond.clamp(min=0).long()
-    si = substate_index(ops.inputs).long()
-    so = substate_index(ops.outputs).long()
-    w = model.full_w[b, si, so]
+def op_weights(ops: OpString, model: BondModel,
+               bond_xor: torch.Tensor | None = None) -> torch.Tensor:
+    """f32[M, R]: matrix element of every op (1.0 for identities).
+    ``bond_xor i32[R, NB]`` applies per-replica sign-pattern labels as
+    substate permutations (see ``diagonal.py``, "sign patterns")."""
+    b = ops.bond.clamp(min=0)
+    si = substate_index(ops.inputs)
+    so = substate_index(ops.outputs)
+    if bond_xor is not None:
+        x = fetch_xor(bond_xor, b)
+        si, so = si ^ x, so ^ x
+    w = model.full_w[b.long(), si.long(), so.long()]
     return torch.where(ops.bond >= 0, w, torch.ones_like(w))
+
+
+def log_relative_weight(ops: OpString, model_a: BondModel, model_b: BondModel):
+    """The op-walking relative weight (``OpWeights``,
+    ``tempering_traits.rs:163-196``): every op's matrix element under both
+    models' tables, the log ratios summed. Returns ``(f32[R] log prod
+    w_b/w_a, bool[R] is_zero)``; ``is_zero`` marks replicas whose string
+    has zero weight under ``model_b``, where the log means nothing."""
+    wa = op_weights(ops, model_a)
+    wb = op_weights(ops, model_b)
+    is_zero = ((wb <= 0.0) & (ops.bond >= 0)).any(dim=0)
+    logw = (torch.log(wb.clamp(min=1e-30)) - torch.log(wa.clamp(min=1e-30))).sum(dim=0)
+    return logw, is_zero
+
+
+def log_weight_delta(ops: OpString, model: BondModel, scale_a: torch.Tensor,
+                     xor_a: torch.Tensor, scale_b: torch.Tensor, xor_b: torch.Tensor):
+    """Per replica ``log W(string | label b) - log W(string | label a)``,
+    a label being per-bond multipliers ``f32[R, NB]`` and sign-pattern
+    masks ``i32[R, NB]`` relative to ``model``: :func:`log_relative_weight`
+    in label space, one ``[M, R]`` pass. Returns ``(delta f32[R], blocked
+    bool[R])``; ``blocked`` marks strings of zero weight under label b."""
+    b = ops.bond.clamp(min=0)
+    bl = b.long()
+    occupied = ops.bond >= 0
+    si = substate_index(ops.inputs)
+    so = substate_index(ops.outputs)
+    xa, xb = fetch_xor(xor_a, b), fetch_xor(xor_b, b)
+    wa = model.full_w[bl, (si ^ xa).long(), (so ^ xa).long()]
+    wb = model.full_w[bl, (si ^ xb).long(), (so ^ xb).long()]
+    blocked = (occupied & (wb <= 0.0)).any(dim=0)
+    dlog_tab = torch.where(
+        occupied, torch.log(wb.clamp(min=1e-30)) - torch.log(wa.clamp(min=1e-30)), 0.0)
+    dlog_c = torch.log(scale_b.clamp(min=1e-30)) - torch.log(scale_a.clamp(min=1e-30))
+    rows = torch.arange(ops.replicas, device=b.device)[None, :]
+    dlog_scale = torch.where(occupied, dlog_c[rows, bl], 0.0)
+    return (dlog_tab + dlog_scale).sum(dim=0), blocked
 
 
 def sorted_legs(ops: OpString, model: BondModel):
@@ -239,17 +282,22 @@ def itime_states(ops: OpString, state: torch.Tensor, model: BondModel) -> torch.
     return torch.stack(states)
 
 
-def verify(ops: OpString, state: torch.Tensor, model: BondModel) -> torch.Tensor:
+def verify(ops: OpString, state: torch.Tensor, model: BondModel,
+           bond_xor: torch.Tensor | None = None) -> torch.Tensor:
     """Worldline integrity per replica, ``bool[R]`` (``OpContainer::verify``,
     ``op_container.rs:137-159``, plus the positive-weight check of
-    ``qmc_ising.rs:829-861``).
+    ``qmc_ising.rs:829-861``, each replica's ops weighed under its own
+    sign pattern ``bond_xor i32[R, NB]`` when given).
 
     Same verdict as propagating ``state`` through the string slot by slot
-    (the JAX package's scan): along each variable's worldline every op's
-    input must equal the previous op's output (the p=0 state for the first
-    op), and the last op's output must equal the p=0 state (periodic). Here
-    the worldlines come from one sort of the legs, so there is no loop over
-    ``M``. Assumes no bond names a variable twice, as every model does."""
+    (the JAX package's scan): every leg's input must equal its variable's
+    value just below the slot, then the slot's outputs overwrite it, the
+    last leg's last where a bond names the variable twice; the value above
+    the last slot must equal the p=0 state (periodic). Here the worldlines
+    come from one sort of the legs, so there is no loop over ``M``: the
+    legs of one (variable, slot) group sit together in leg order, and each
+    reads the output of the row just before its group (when that row holds
+    the same variable) or the p=0 state."""
     M, R = ops.bond.shape
     KM = ops.max_legs * M
     N = model.nvars
@@ -258,16 +306,20 @@ def verify(ops: OpString, state: torch.Tensor, model: BondModel) -> torch.Tensor
     svar = torch.where(valid, skey // M, N).long()
     in_s = torch.gather(ops.inputs.reshape(KM, R), 0, order)
     out_s = torch.gather(ops.outputs.reshape(KM, R), 0, order)
-    same_prev = torch.zeros_like(valid)
-    same_prev[1:] = svar[1:] == svar[:-1]
-    prev_out = torch.zeros_like(out_s)
-    prev_out[1:] = out_s[:-1]
+    group_start = torch.ones_like(valid)
+    group_start[1:] = skey[1:] != skey[:-1]
+    # The first row of each row's group, by a running maximum along the
+    # transpose's innermost axis (see worldline_maps); the row before it.
+    row = torch.arange(KM, device=skey.device)
+    head = torch.where(group_start.T, row, 0).cummax(dim=1).values.T
+    before = (head - 1).clamp(min=0)
+    carried = (head > 0) & (torch.gather(svar, 0, before) == svar)
     st_pad = torch.cat([state.T, torch.zeros((1, R), dtype=torch.bool, device=state.device)])
     st_v = torch.gather(st_pad, 0, svar)  # p=0 spin of each sorted leg's var
-    expect_in = torch.where(same_prev, prev_out, st_v)
+    expect_in = torch.where(carried, torch.gather(out_s, 0, before), st_v)
     tail = valid.clone()
     tail[:-1] &= svar[:-1] != svar[1:]
     ok = (~valid | (in_s == expect_in)).all(dim=0)
     ok &= (~tail | (out_s == st_v)).all(dim=0)
-    ok &= (op_weights(ops, model) > 0.0).all(dim=0)
+    ok &= (op_weights(ops, model, bond_xor) > 0.0).all(dim=0)
     return ok

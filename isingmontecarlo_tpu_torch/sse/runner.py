@@ -541,6 +541,22 @@ class Qmc:
         """Ops at ``bond`` per replica, ``i32[R]``."""
         return _ops.bond_counts(self._ensure_sse().ops, self.model.nbonds)[:, bond]
 
+    def save(self, path: str, *, strip_rng: bool = False) -> None:
+        """Write a checkpoint in the JAX package's ``.npz`` layout
+        (:mod:`isingmontecarlo_tpu_torch.checkpoint`)."""
+        from isingmontecarlo_tpu_torch import checkpoint as _ckpt
+
+        _ckpt.save_qmc(path, self, strip_rng=strip_rng)
+
+    @classmethod
+    def load(cls, path: str, *, seed: int | None = None,
+             device: torch.device | str = "cuda") -> "Qmc":
+        """A ``Qmc`` from :meth:`save`'s file or the JAX package's; ``seed``
+        reseeds the generator."""
+        from isingmontecarlo_tpu_torch import checkpoint as _ckpt
+
+        return _ckpt.load_qmc(path, seed=seed, device=device)
+
     def verify(self) -> bool:
         """Worldline integrity of every replica."""
         sse = self._ensure_sse()

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from isingmontecarlo_tpu_torch.ops.take_kernel import take0
+
 
 def bond_fetch(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``tab[idx]`` as int32 for a per-bond table ``tab[NB]`` and an index
@@ -33,3 +35,15 @@ def searchsorted_left(table: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     if table.dim() == 2:
         return torch.searchsorted(table, q.T.contiguous()).T.to(torch.int32)
     return torch.searchsorted(table, q).to(torch.int32)
+
+
+def fetch_xor(bond_xor: torch.Tensor, b: torch.Tensor,
+              b2: torch.Tensor | None = None):
+    """Per-replica sign-pattern masks ``bond_xor[r, b[e, r]]``, ``i32[E, R]``,
+    for ``bond_xor i32[R, NB]`` and a bond grid ``b i32[E, R]`` (with ``b2``
+    a second grid, gathered in the same launch; returns the pair). This is
+    K4's per-replica gather on the table's transpose, as the JAX package
+    takes ``take0`` on its chip (``isingmontecarlo_tpu/sse/tables.py:93-109``):
+    the kernel on CUDA, ``torch.gather`` on the CPU."""
+    table = bond_xor.T.contiguous()
+    return take0(table, b.contiguous(), None if b2 is None else b2.contiguous())

@@ -433,3 +433,56 @@ def test_bond_autocorrelation_equals_jax_on_the_same_states():
     got = q.calculate_bond_autocorrelation(16, 1.0)
     assert got.shape == (16,)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_verify_equals_jax_on_a_bond_that_names_a_variable_twice():
+    """A bond on ``[0, 0]`` (``make_interaction(mat, [0, 0])`` builds one in
+    both packages): every leg of a slot reads the value below the slot and
+    the last leg's output carries on, as JAX's scan has it. Each replica
+    holds one case, among them strings that JAX accepts and a leg-by-leg
+    check rejects, and the other way round."""
+    mat = np.full((4, 4), 0.5) + np.eye(4)  # off-diagonal, every element positive
+    jm = jmodel.generic_model(2, [(mat, [0, 0]), (W_XXZ, [0, 1])])
+    tm = torch_model(jm)
+    cases = [  # (state of var 0 and var 1, ops)
+        ((0, 0), [(0, 0, [0, 0], [1, 0])]),  # both legs read 0; the last writes 0
+        ((0, 0), [(0, 0, [0, 0], [0, 1])]),  # ends at 1: not periodic
+        ((0, 0), [(0, 0, [0, 1], [0, 0])]),  # leg 1 reads 1 below the slot
+        ((0, 0), [(0, 0, [0, 1], [1, 0])]),  # leg 1 reads leg 0's output, not the state
+        ((0, 1), [(0, 0, [0, 0], [1, 1]), (3, 0, [1, 1], [0, 0])]),
+        ((0, 0), [(0, 0, [0, 0], [1, 0]), (2, 0, [0, 0], [0, 0])]),
+        ((1, 0), [(1, 0, [1, 0], [1, 1])]),
+        ((1, 0), [(0, 1, [1, 0], [0, 1]), (2, 0, [0, 0], [1, 0]), (4, 1, [0, 1], [1, 0])]),
+    ]
+    states = np.array([s for s, _ in cases], bool)
+    ops = [o for _, o in cases]
+    jo = jops.new_from_ops(6, ops, replicas=len(cases), max_legs=2)
+    to = tops.new_from_ops(6, ops, replicas=len(cases), max_legs=2, device="cpu")
+    want = np.asarray(jops.verify(jo, jnp.asarray(states), jm))
+    got = np_(tops.verify(to, torch.from_numpy(states), tm))
+    np.testing.assert_array_equal(got, want)
+    assert want.tolist() == [True, False, False, False, True, True, False, True]
+
+
+@pytest.mark.parametrize("name", list(BUILDS))
+def test_verify_equals_jax_on_the_generic_strings(name):
+    """The port's ``verify`` gives JAX's verdict per replica on each model's
+    string and on copies broken in some replicas: an op's output leg, a
+    p=0 spin or an input leg flipped."""
+    q = port_qmc(name)
+    jq = jax_qmc(q)
+    ops = q.get_manager_ref()
+    bond, inputs, outputs = (np_(a).copy() for a in ops)
+    state = q.clone_state()
+    rng = np.random.default_rng(len(name))
+    occupied = np.argwhere(bond >= 0)  # (p, r)
+    for r, arr in ((1, outputs), (3, inputs)):
+        p = occupied[occupied[:, 1] == r][rng.integers(0, (occupied[:, 1] == r).sum())][0]
+        arr[0, p, r] ^= True
+    state[5, rng.integers(0, NV)] ^= True
+    for b, i, o, s in ((*(np_(a) for a in ops), q.clone_state()), (bond, inputs, outputs, state)):
+        want = np.asarray(jops.verify(jax_opstring(b, i, o), jnp.asarray(s), jq.model))
+        got = np_(tops.verify(tops.OpString(*(torch.from_numpy(a) for a in (b, i, o))),
+                              torch.from_numpy(s), q.model))
+        np.testing.assert_array_equal(got, want)
+    assert want.any() and not want.all()

@@ -118,12 +118,14 @@ def test_parity_kernel_takes_any_k_before_launch(monkeypatch, K):
     """Where the kernel would run, any K reaches the launch, with a scratch
     of (segments + 1) N-bit vectors a replica and a segment length that is
     a multiple of 4 and cuts M into about _WARPS_PER_SM warps an SM; an N whose carry
-    no CTA's shared memory holds raises first. (The wrapper is made to take
-    its kernel branch for CPU tensors; nothing is launched.)"""
+    no CTA's shared memory holds goes to the global-memory variant, counted
+    there and not here. (The wrapper is made to take its kernel branch for
+    CPU tensors; nothing is launched.)"""
     from isingmontecarlo_tpu_torch.ops import parity_kernel
 
     calls = []
-    monkeypatch.setattr(ops.parity_bits, "launches", ops.parity_bits.launches)
+    monkeypatch.setattr(ops.parity_bits, "launches", 0)
+    monkeypatch.setattr(ops.parity_bits_global, "launches", 0)
     monkeypatch.setattr(_build, "use_kernel", lambda dev: True)
     monkeypatch.setattr(_build, "launch", lambda name, *args: calls.append((name, args)))
     monkeypatch.setattr(_build, "sm_count", lambda dev: 132)
@@ -142,11 +144,60 @@ def test_parity_kernel_takes_any_k_before_launch(monkeypatch, K):
     warps = parity_kernel._WARPS_PER_SM * 132
     assert 0.85 * warps <= nseg * R // 32 <= warps  # segment warps
     assert parity_kernel.segment_length(M, R, 132) == seg_len
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.parity_bits(torch.zeros((1, 30000), dtype=torch.bool),
-                        *(torch.zeros((K, 4, 1), dtype=d) for d in
-                          (torch.int32, torch.bool, torch.int32)))
-    assert len(calls) == 2
+    ops.parity_bits(torch.zeros((1, 30000), dtype=torch.bool),
+                    *(torch.zeros((K, 4, 1), dtype=d) for d in
+                      (torch.int32, torch.bool, torch.int32)))
+    assert [c[0] for c in calls] == ["ising_parity_bits"] * 2 + ["ising_parity_bits_global"]
+    assert calls[2][1][-5:-1] == (K, 4, 1, 30000)
+    assert (ops.parity_bits.launches, ops.parity_bits_global.launches) == (2, 1)
+
+
+@pytest.mark.parametrize("N,variant", [
+    (1, "shared"), (1024, "shared"), (29_056, "shared"), (29_057, "global"),
+    (36_864, "global"), (10**6, "global"),
+])
+def test_k2_variant_at_the_shared_memory_limit(N, variant):
+    """K2 keeps two warps' N-bit carries in a CTA's 232,448 bytes of shared
+    memory up to N = 29,056 (908 words a lane); past it, the global-memory
+    variant takes any N. A smaller budget moves the limit with it."""
+    from isingmontecarlo_tpu_torch.ops import parity_kernel
+
+    assert parity_kernel.k2_variant(N) == variant
+    assert parity_kernel.k2_variant(N, 2 * 32 * 4 * -(-N // 32)) == "shared"
+    assert parity_kernel.k2_variant(N, 2 * 32 * 4 * -(-N // 32) - 1) == "global"
+
+
+@pytest.mark.parametrize("M,R,N", [(7000, 64, 36_864), (25_000, 32, 36_864),
+                                   (5, 3, 40_000), (100_000, 1, 30_000), (3000, 256, 10**6)])
+def test_parity_bits_global_scratch_and_segments(monkeypatch, M, R, N):
+    """The global variant's wrapper: no limit on N; a zeroed scratch of
+    (segments + 1) N-bit vectors a replica, within GLOBAL_SCRATCH_BYTES
+    where two rows fit, about _WARPS_PER_SM warps of threads an SM, at most
+    65,535 segments, every slot in a segment. (The kernel branch on CPU
+    tensors; nothing is launched.)"""
+    from isingmontecarlo_tpu_torch.ops import parity_kernel
+
+    calls = []
+    monkeypatch.setattr(ops.parity_bits_global, "launches", 0)
+    monkeypatch.setattr(_build, "use_kernel", lambda dev: True)
+    monkeypatch.setattr(_build, "launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(_build, "sm_count", lambda dev: 132)
+    K = 2
+    ops.parity_bits(torch.zeros((R, N), dtype=torch.bool),
+                    torch.zeros((K, M, R), dtype=torch.int32),
+                    torch.zeros((K, M, R), dtype=torch.bool),
+                    torch.zeros((K, M, R), dtype=torch.int32))
+    ((name, args),) = calls
+    assert name == "ising_parity_bits_global" and ops.parity_bits_global.launches == 1
+    seg_len = args[-1]
+    nseg = -(-M // seg_len)
+    assert args[-5:-1] == (K, M, R, N) and nseg <= 65_535 and (nseg - 1) * seg_len < M
+    seg = args[4]
+    W = -(-N // 32)
+    assert seg.shape == (nseg + 1, W, R) and not seg.any()
+    row = 4 * W * R
+    assert seg.numel() * 4 <= max(parity_kernel.GLOBAL_SCRATCH_BYTES, 2 * row)
+    assert nseg * R <= parity_kernel._WARPS_PER_SM * 132 * 32 + R
 
 
 @pytest.mark.cuda
@@ -171,6 +222,32 @@ def test_cuda_parity_bits_equals_plain():
             _parity_inputs(np.random.default_rng(0), 2, 7000, 256, 1024)]
     for g, w in zip(ops.parity_bits(*args), ops.parity_bits_plain(*args)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_parity_bits_global_equals_plain():
+    """K2's global-memory variant on the card against the plain version at
+    K = 1..6 on ragged shapes (called directly, at small N), and through
+    ``parity_bits`` past the shared-memory limit (N = 29,057 and 36,864),
+    where only the global variant launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    for K in range(1, 7):
+        for M, R, N in ((37, 5, 9), (301, 48, 40), (130, 33, 37), (7, 1, 6), (1000, 64, 70)):
+            args = [torch.from_numpy(a).cuda() for a in
+                    _parity_inputs(np.random.default_rng(K * M + R), K, M, R, N)]
+            for g, w in zip(ops.parity_bits_global(*args), ops.parity_bits_plain(*args)):
+                assert torch.equal(g, w), (K, M, R, N)
+    for K, M, R, N in ((2, 300, 7, 29_057), (2, 2000, 64, 36_864)):
+        args = [torch.from_numpy(a).cuda() for a in
+                _parity_inputs(np.random.default_rng(N), K, M, R, N)]
+        before = ops.parity_bits.launches, ops.parity_bits_global.launches
+        got = ops.parity_bits(*args)
+        torch.cuda.synchronize()
+        assert (ops.parity_bits.launches, ops.parity_bits_global.launches) == (
+            before[0], before[1] + 1)
+        for g, w in zip(got, ops.parity_bits_plain(*args)):
+            assert torch.equal(g, w), (K, M, R, N)
 
 
 def test_parity_bits_plain_chunks_thread_the_carry(monkeypatch):
@@ -294,5 +371,6 @@ def test_wrappers_check_inputs_and_devices():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"checkerboard_multi_sweep": 0,
                                    "checkerboard_multi_sweep_global": 0, "parity_bits": 0,
-                                   "carry_decisions": 0, "carry_decisions_heatbath": 0,
-                                   "take0": 0, "hook_min": 0, "pointer_jump": 0}
+                                   "parity_bits_global": 0, "carry_decisions": 0,
+                                   "carry_decisions_heatbath": 0, "take0": 0, "hook_min": 0,
+                                   "pointer_jump": 0}

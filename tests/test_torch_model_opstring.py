@@ -140,7 +140,9 @@ def test_port_imports_without_jax():
         "from isingmontecarlo_tpu_torch import convert, lattice, ops\n"
         "from isingmontecarlo_tpu_torch.sse import cluster, diagonal, ising, model, opstring, tables\n"
         "from isingmontecarlo_tpu_torch.sse import loops, runner\n"
-        "from isingmontecarlo_tpu_torch.analysis import autocorr\n"
+        "from isingmontecarlo_tpu_torch.analysis import autocorr, observables\n"
+        "from isingmontecarlo_tpu_torch import checkpoint, parallel\n"
+        "from isingmontecarlo_tpu_torch.parallel import tempering\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'isingmontecarlo_tpu.'))"
         " or m == 'isingmontecarlo_tpu']\n"
         "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

@@ -135,10 +135,13 @@ class JaxSweepDraws:
     ``rvb.py:1534``, ``cluster.py:654, 720``, ``ising.py:87``; the generic
     timestep's ``runner.py:54``) as port tensors."""
 
-    def __init__(self, k_diag, k_clust, k_free, k_rvb=None, k_loops=None):
+    def __init__(self, k_diag, k_clust, k_free, k_rvb=None, k_loops=None, k_swap=None):
         self.k_diag, self.k_clust, self.k_free = k_diag, k_clust, k_free
-        self.k_rvb, self.k_loops = k_rvb, k_loops
+        self.k_rvb, self.k_loops, self.k_swap = k_rvb, k_loops, k_swap
         self.cluster_shapes = []
+
+    def swap(self, shape):
+        return t_(jax.random.uniform(self.k_swap, shape))
 
     def rvb(self, n_updates):
         return JaxRvbDraws(self.k_rvb, n_updates)
@@ -160,14 +163,21 @@ class JaxSweepDraws:
 
 class JaxKeyDraws:
     """Per-timestep draws split from a JAX key as ``_sweep_impl`` splits it;
-    pass ``.next`` as ``multi_sweep``'s ``next_draws``."""
+    pass ``.next`` as ``multi_sweep``'s ``next_draws``. With
+    ``tempering=True`` each timestep's key is split once more for the swap
+    uniforms, ``k_next, k_swap = split(key)``, as
+    ``tempering_sweep_chunk`` does (``parallel/tempering.py:389``)."""
 
-    def __init__(self, key):
+    def __init__(self, key, tempering: bool = False):
         self.key = key
+        self.tempering = tempering
 
     def next(self) -> JaxSweepDraws:
         self.key, k_diag, k_rvb, k_clust, k_free = jax.random.split(self.key, 5)
-        return JaxSweepDraws(k_diag, k_clust, k_free, k_rvb)
+        k_swap = None
+        if self.tempering:
+            self.key, k_swap = jax.random.split(self.key)
+        return JaxSweepDraws(k_diag, k_clust, k_free, k_rvb, k_swap=k_swap)
 
 
 class JaxGenericKeyDraws:
