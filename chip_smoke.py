@@ -109,6 +109,29 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    global variant alone; then that variant against its plain version on
    the arguments of one call recorded from one more sweep (``torch.equal``)
    and timed there: its row in the ``kernels`` line.
+10. Parallel tempering sharded over the ranks of a ``torch.distributed``
+   process group (``TemperingContainer.shard_over``), the ranks spawned by
+   ``parallel._dist.spawn``. (a) 9a's ladder over four gloo ranks sharing
+   the card, 64 replicas a rank: grown, warm, 64 measured sweep+swap steps
+   in chunks of 32, then a fingerprinted chunk; every rank's ``verify()``,
+   the gathered beta multiset, equal fingerprints and growth decisions, K2,
+   K3 and K4 launched on every rank, the swap's gathered bytes equal to
+   ``8 R`` a swap (``n i32[R]``, ``betas f32[R]``) and no ``[M, R_l]``
+   tensor gathered; ms per sweep+swap per rank beside 9a's, the gathers of
+   one swap timed alone (gloo through the host, on one card: no NVLink or
+   NCCL number), and the same gathers of host copies, the neighbour
+   levels' acceptance. (b) 9a's and 9c's grown
+   containers: the sharded chunk on four gloo ranks, each on its block of
+   one unsharded run's uniforms (``tempering.BlockDraws``), cap-less,
+   ``torch.equal`` to ``tempering_sweep_chunk`` on those uniforms. (c) (a)
+   through NCCL at world size 1, and over up to four cards where the host
+   has them (else a line saying it ran on one card only). (d)
+   ``tempering.dryrun_sharded`` on four gloo ranks of the card: a
+   heterogeneous heat-bath ladder with per-replica tables, sharded, one
+   chunk of two sweep+swap steps, then one RVB sweep; every rank verifies
+   and agrees on the gathered op counts, betas and swap count, launched K2,
+   K3-hb and K4, and gathered per swap the heat-bath rows and bond counts
+   beside ``n``, ``betas`` and the scales.
 
 Then one JSON line of per-kernel results, a line with the card's name and
 power limit, and last a JSON line with the device. The script needs no
@@ -126,6 +149,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from isingmontecarlo_tpu_torch import GraphState, LatticeIsing, checkpoint, lattice, ops
 from isingmontecarlo_tpu_torch.analysis import (
@@ -135,12 +159,13 @@ from isingmontecarlo_tpu_torch.classical import metropolis, worm
 from isingmontecarlo_tpu_torch.ops import _build
 from isingmontecarlo_tpu_torch.ops import checkerboard as cb
 from isingmontecarlo_tpu_torch.ops.diag_carry import tie_heavy_carry_inputs
-from isingmontecarlo_tpu_torch.parallel import TemperingContainer, tempering
+from isingmontecarlo_tpu_torch.parallel import TemperingContainer, _dist, tempering
 from isingmontecarlo_tpu_torch.sse import Qmc, QmcIsingGraph, multi_sweep, tfim_model
 from isingmontecarlo_tpu_torch.sse import cluster as sse_cluster
 from isingmontecarlo_tpu_torch.sse import diagonal as sse_diagonal
 from isingmontecarlo_tpu_torch.sse import loops as sse_loops
 from isingmontecarlo_tpu_torch.sse import runner as sse_runner
+from isingmontecarlo_tpu_torch.sse import ising as sse_ising
 from isingmontecarlo_tpu_torch.sse import rvb as sse_rvb
 from isingmontecarlo_tpu_torch.sse.cluster import (
     N_COMPRESS, hook_compress_labels, segment_graph,
@@ -2190,6 +2215,263 @@ def check_recorded_parity(g: QmcIsingGraph) -> dict:
     return res
 
 
+# -- Phase 10: parallel tempering sharded over ranks ------------------------------------
+
+# 10a: 9a's ladder (64 betas x 4 replicas, 32x32, Metropolis) over SH_WORLD
+# gloo ranks sharing the card, 64 replicas a rank, with 9a's growth, warm-up
+# and measured sweep+swap steps; then one fingerprinted chunk of SH_FP steps.
+SH_WORLD, SH_FP, SH_TIMEOUT = 4, 4, 420.0
+# The gathers of one 9a swap, timed alone SH_REPS times.
+SH_REPS = 64
+# 10b: sweep+swap steps of the sharded chunk against the unsharded one.
+SH_EQUAL_T = 4
+
+
+def sharded_ladder_rank(rank: int, world: int, device: str) -> dict:
+    """Phase 10a (and 10c) on one rank: 9a's ladder sharded over the
+    ``world`` ranks, grown and warm, then ``PT_SAMPLE`` measured sweep+swap
+    steps in chunks of ``PT_CHUNK`` with the launches and the collectives'
+    traffic counted, the gathers of one swap timed alone, and one chunk of
+    ``SH_FP`` steps with its fingerprint. Raises where this rank's checks
+    fail; returns what the ranks must agree on and what was measured."""
+    dev = _dist.rank_device(device, rank, dist.get_backend())
+    torch.cuda.set_device(dev)
+    tc = TemperingContainer(lattice.bench_two_d_periodic(32), transverse=1.0,
+                            betas=PT_BETAS, replicas_per_beta=PT_PER_BETA, seed=PT_SEED,
+                            device=dev)
+    tc.shard_over()
+    g = tc.graph
+    t0 = time.perf_counter()
+    tc.timesteps(PT_GROW)
+    tc.timesteps_sample(PT_WARM, chunk=PT_CHUNK)
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t0
+    betas_before = tc._global(tc.betas)
+    p0, swaps0 = tc._parity, tc.total_swaps
+    ops.reset_launch_counts()
+    _dist.reset_traffic()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    states, bet = tc.timesteps_sample(PT_SAMPLE, swap_freq=1, chunk=PT_CHUNK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    traffic = _dist.traffic()
+    R, R_l = tc.replicas, g.replicas
+    if tuple(states.shape) != (PT_SAMPLE, R, g.nvars) or not tc.verify():
+        raise AssertionError(f"10a rank {rank}: samples {tuple(states.shape)} or verify()")
+    if min(counts[k] for k in ("parity_bits", "carry_decisions", *SSE_K4)) <= 0:
+        raise AssertionError(f"10a rank {rank} did not run through K2, K3 and K4: {counts}")
+    want = sorted(np.repeat(PT_BETAS.astype(np.float32), PT_PER_BETA).tolist())
+    if sorted(tc._global(tc.betas).tolist()) != want:
+        raise AssertionError(f"10a rank {rank}: the gathered betas are not the ladder's")
+    # Every measured step swaps; a swap of a beta ladder gathers n i32[R]
+    # and betas f32[R], nothing else, and no tensor of the op string's size.
+    swap = traffic.get("swap", {"calls": 0, "bytes": 0, "shapes": []})
+    per_swap = 4 * R + 4 * R
+    if (swap["calls"], swap["bytes"]) != (2 * PT_SAMPLE, per_swap * PT_SAMPLE) or \
+            swap["shapes"] != [((R_l,), "float32"), ((R_l,), "int32")]:
+        raise AssertionError(f"10a rank {rank}: swap traffic {swap}, want {2 * PT_SAMPLE} "
+                             f"gathers of {per_swap * PT_SAMPLE} bytes of [{R_l}] vectors")
+    crossed = [shape for t in traffic.values() for shape, _ in t["shapes"]]
+    if any(g.cutoff in shape for shape in crossed):
+        raise AssertionError(f"10a rank {rank}: a [M, R_l] tensor crossed ranks: {traffic}")
+    n_l = op_count(g.sse.ops)
+    _dist.all_reduce_max(torch.zeros(1, dtype=torch.int32, device=dev), tag="timing")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(SH_REPS):
+        _dist.all_gather(n_l, tag="timing")
+        _dist.all_gather(tc.betas, tag="timing")
+    torch.cuda.synchronize()
+    coll_ms = 1e3 * (time.perf_counter() - t2) / SH_REPS
+    host_ms = None
+    if dist.get_backend() == "gloo":
+        # The same gathers of host copies: what the card's part costs.
+        n_h, b_h = n_l.cpu(), tc.betas.cpu()
+        _dist.all_reduce_max(torch.zeros(1, dtype=torch.int32), tag="timing")
+        t3 = time.perf_counter()
+        for _ in range(SH_REPS):
+            _dist.all_gather(n_h, tag="timing")
+            _dist.all_gather(b_h, tag="timing")
+        host_ms = 1e3 * (time.perf_counter() - t3) / SH_REPS
+    out = tempering.tempering_sweep_chunk_sharded(
+        g.sse, tc.betas, tc.scales, tc._parity, [True] * SH_FP, g.model, SH_FP,
+        tc._draws, cluster_caps=g._cluster_caps, debug_rep_check=True)
+    fp = out[-1]
+    if not torch.equal(fp, fp[:1].expand_as(fp)):
+        raise AssertionError(f"10a rank {rank}: the ranks' fingerprints differ: {fp}")
+    g.sse, tc.betas = out[0], out[1]
+    if not tc.verify():
+        raise AssertionError(f"10a rank {rank}: verify() failed after the fingerprinted chunk")
+    attempts = sum(1 for i in range(PT_SAMPLE) if (p0 + i) % 2 == 1)
+    levels_t = np.stack([beta_levels(b, PT_BETAS) for b in bet])
+    acc = pair_acceptance(beta_levels(betas_before, PT_BETAS), levels_t, attempts)
+    return {"rank": rank, "device": str(dev), "world": world, "R_local": R_l,
+            "cutoff": g.cutoff, "caps": g._cluster_caps, "grow_s": grow_s,
+            "ms_per_sweep_swap": 1e3 * secs / PT_SAMPLE,
+            "swaps_per_step": (tc.total_swaps - swaps0) / PT_SAMPLE,
+            "swap_bytes_per_swap": swap["bytes"] / PT_SAMPLE, "swap_bytes_want": per_swap,
+            "traffic": traffic, "collectives_ms_per_swap": coll_ms,
+            "collectives_ms_per_swap_host_tensors": host_ms,
+            "launches": counts, "fingerprint": fp.cpu(),
+            "pair_acceptance_min_median_max": [float(acc.min()), float(np.median(acc)),
+                                               float(acc.max())],
+            "mean_n": float(tc._global(n_l.float(), tag="result").mean())}
+
+
+def run_sharded_ladder(world: int, backend: str, label: str, card: str,
+                       ms_9a: float) -> list:
+    """Phases 10a and 10c: :func:`sharded_ladder_rank` on ``world`` ranks
+    of ``backend``; every rank's checks pass, and the ranks agree on the
+    cutoff, the caps and the fingerprint."""
+    t0 = time.perf_counter()
+    res = _dist.spawn(sharded_ladder_rank, world, backend, "cuda", timeout=SH_TIMEOUT)
+    first = res[0]
+    for r in res[1:]:
+        if (r["cutoff"], r["caps"]) != (first["cutoff"], first["caps"]) or \
+                not torch.equal(r["fingerprint"], first["fingerprint"]):
+            raise AssertionError(f"{label}: ranks 0 and {r['rank']} disagree: "
+                                 f"{(first['cutoff'], first['caps'])} vs "
+                                 f"{(r['cutoff'], r['caps'])}")
+    for r in res:
+        print(f"{label} rank {r['rank']} on {r['device']}: R_l={r['R_local']}, cutoff "
+              f"{r['cutoff']}, {r['ms_per_sweep_swap']:.3f} ms a sweep+swap (9a unsharded: "
+              f"{ms_9a:.3f}), the gathers of one swap {r['collectives_ms_per_swap']:.4f} ms "
+              f"({backend}), launches {r['launches']}", flush=True)
+    summary = {"card": card, "backend": backend, "world": world,
+               "R": len(PT_BETAS) * PT_PER_BETA,
+               "cutoff": first["cutoff"], "caps": first["caps"],
+               "grow_s": [r["grow_s"] for r in res],
+               "ms_per_sweep_swap": [r["ms_per_sweep_swap"] for r in res],
+               "ms_per_sweep_swap_9a_unsharded": ms_9a,
+               "collectives_ms_per_swap": [r["collectives_ms_per_swap"] for r in res],
+               "collectives_ms_per_swap_host_tensors":
+                   [r["collectives_ms_per_swap_host_tensors"] for r in res],
+               "swap_bytes_per_swap": first["swap_bytes_per_swap"],
+               "swap_bytes_from_shapes": first["swap_bytes_want"],
+               "traffic_rank0": {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                                 for k, v in first["traffic"].items()},
+               "swaps_per_step": first["swaps_per_step"],
+               "pair_acceptance_min_median_max": first["pair_acceptance_min_median_max"],
+               "mean_n": first["mean_n"], "fingerprint": first["fingerprint"][0].tolist(),
+               "wall_s": time.perf_counter() - t0}
+    print(f"{label}: " + json.dumps(summary), flush=True)
+    return res
+
+
+# The replica axis of each output of a tempering chunk (None: replicated).
+CHUNK_AXES = {"bond": 1, "inputs": 2, "outputs": 2, "state": 0, "betas": 0, "scales": 0,
+              "xors": 0, "parity": None, "nswaps": None, "ns": 1, "states": 1, "betas_t": 1}
+
+
+def chunk_parts(out) -> dict:
+    """A tempering chunk's outputs by name, on the CPU."""
+    sse, betas, scales, xors, _, parity, nswaps, ns, states, betas_t = out[:10]
+    parts = dict(zip(("bond", "inputs", "outputs"), sse.ops), state=sse.state, betas=betas,
+                 scales=scales, xors=xors, parity=parity, nswaps=nswaps, ns=ns,
+                 states=states, betas_t=betas_t)
+    return {k: None if v is None else v.cpu() for k, v in parts.items()}
+
+
+def sharded_equal_rank(rank: int, world: int, path: str, seed: int) -> dict:
+    """Phase 10b on one rank: the container of the checkpoint ``path``,
+    sharded, runs ``SH_EQUAL_T`` sweep+swap steps of the sharded chunk
+    cap-less on its block of one unsharded run's uniforms
+    (:class:`~tempering.BlockDraws` on a generator seeded with ``seed``).
+    Returns the rank's outputs on the CPU."""
+    dev = _dist.rank_device("cuda", rank, dist.get_backend())
+    torch.cuda.set_device(dev)
+    tc = checkpoint.load_tempering(path, device=dev)
+    tc.shard_over()
+    g = tc.graph
+    draws = tempering.BlockDraws(torch.Generator(device=dev).manual_seed(seed),
+                                 rank * g.replicas, g.replicas, tc.replicas)
+    return chunk_parts(tempering.tempering_sweep_chunk_sharded(
+        g.sse, tc.betas, tc.scales, tc._parity, [True] * SH_EQUAL_T, g.model, SH_EQUAL_T,
+        lambda: draws, hetero=tc.hetero, collect_states=True, xors=tc.xors))
+
+
+def check_sharded_equal(ladders: dict) -> None:
+    """Phase 10b: for each grown container of ``ladders`` (9a's beta
+    ladder, 9c's signed ladder; h = 0), the sharded chunk on ``SH_WORLD``
+    gloo ranks and the unsharded chunk on the same uniforms, cap-less
+    (every replica labels at full size, so the cluster shapes agree): op
+    strings, states, labels, parity, swap count and samples
+    ``torch.equal``."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, tc) in enumerate(ladders.items()):
+            t0 = time.perf_counter()
+            path = str(Path(tmp) / f"ladder{i}.npz")
+            checkpoint.save_tempering(path, tc)
+            seed = 900 + i
+            outs = _dist.spawn(sharded_equal_rank, SH_WORLD, "gloo", path, seed,
+                               timeout=SH_TIMEOUT)
+            g = tc.graph
+            gen = torch.Generator(device=tc.device).manual_seed(seed)
+            want = chunk_parts(tempering.tempering_sweep_chunk(
+                g.sse, tc.betas, tc.scales, tc._parity, [True] * SH_EQUAL_T, g.model,
+                SH_EQUAL_T, lambda: sse_ising.GeneratorDraws(gen), hetero=tc.hetero,
+                collect_states=True, xors=tc.xors))
+            for name, axis in CHUNK_AXES.items():
+                if want[name] is None:
+                    same = all(o[name] is None for o in outs)
+                elif axis is None:
+                    same = all(torch.equal(o[name], want[name]) for o in outs)
+                else:
+                    same = torch.equal(torch.cat([o[name] for o in outs], dim=axis),
+                                       want[name])
+                if not same:
+                    raise AssertionError(f"10b {label}: the sharded chunk's {name} differs "
+                                         f"from the unsharded chunk's")
+            print(f"10b {label}: {SH_EQUAL_T} sweep+swap steps on {SH_WORLD} gloo ranks "
+                  f"torch.equal to the unsharded chunk (op strings, states, labels, parity, "
+                  f"{int(want['nswaps'])} swaps, samples) in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+
+def check_dryrun_sharded(world: int) -> None:
+    """Phase 10d: ``tempering.dryrun_sharded`` on ``world`` gloo ranks of the
+    card (a heterogeneous heat-bath ladder, per-replica tables, sharded; one
+    chunk of two sweep+swap steps; one RVB sweep at the swapped labels).
+    Every rank verifies, the ranks agree on the gathered op counts, betas
+    and swap count, the betas are the ladder's, each rank launched K2,
+    K3-hb and K4, and each swap gathered the per-replica heat-bath rows and
+    bond counts beside ``n``, ``betas`` and the scales."""
+    t0 = time.perf_counter()
+    res = tempering.dryrun_sharded(world, "gloo", "cuda", timeout=SH_TIMEOUT)
+    first = res[0]
+    want = np.linspace(0.5, 2.0, 2 * world).astype(np.float32).tolist()
+    if sorted(first["betas"]) != want:
+        raise AssertionError(f"10d: the gathered betas {first['betas']} are not the ladder's")
+    for r in res:
+        if not r["verify"] or r["device"] != f"cuda:{r['rank'] % torch.cuda.device_count()}":
+            raise AssertionError(f"10d rank {r['rank']} on {r['device']}: verify() "
+                                 f"{r['verify']}")
+        if (r["n"], r["betas"], r["swaps"]) != (first["n"], first["betas"], first["swaps"]):
+            raise AssertionError(f"10d: ranks 0 and {r['rank']} disagree")
+        counts = r["launches"]
+        if min(counts[k] for k in ("parity_bits", "carry_decisions_heatbath", *SSE_K4)) <= 0:
+            raise AssertionError(f"10d rank {r['rank']} did not run through K2, K3-hb and "
+                                 f"K4: {counts}")
+        # Each of the two swaps gathers n, betas, the scales, the bond
+        # counts and the heat-bath rows and totals of the rank's R_l
+        # replicas: the 4x4 lattice's 32 edges and 16 transverse bonds.
+        swap, R_l, nb = r["traffic"]["swap"], first["replicas"] // world, 48
+        want_shapes = [((R_l,), "float32"), ((R_l,), "int32"), ((R_l, nb), "float32"),
+                       ((R_l, nb), "int32")]
+        if swap["calls"] != 2 * 6 or swap["shapes"] != want_shapes:
+            raise AssertionError(f"10d rank {r['rank']}: a heat-bath ladder's swaps gathered "
+                                 f"{swap}, want 12 gathers of {want_shapes}")
+    print(f"10d: dryrun_sharded on {world} gloo ranks: R={first['replicas']}, "
+          f"{first['swaps']} swaps, n {first['n']}, swap traffic of rank 0 "
+          f"{first['traffic']['swap']}, launches of rank 0 {first['launches']}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2284,11 +2566,11 @@ def main() -> None:
     check_generic_physics(dev)
 
     phase("9a. tempering: 64-beta ladder x 4 replicas on the 32x32 lattice, Metropolis")
-    tc_a, _, counts = run_tempering_homogeneous(dev, card)
+    tc_a, out_a, counts = run_tempering_homogeneous(dev, card)
     phase("9b. tempering: 64-rung transverse ladder x 4 replicas, heat-bath")
     run_tempering_hetero(dev, card)
     phase("9c. tempering: signed ladder, two 128-replica graphs on the 32x32 lattice")
-    run_tempering_signed(dev, card, counts["take0"] / PT_SAMPLE)
+    tc_c, _, _ = run_tempering_signed(dev, card, counts["take0"] / PT_SAMPLE)
     phase("9d. tempering physics: 4-site heat-bath and signed ladders against ED")
     check_tempering_physics(dev)
     phase("9e. checkpoints: save, run, load, run again")
@@ -2296,6 +2578,25 @@ def main() -> None:
     phase(f"9f. K2's global variant on a model: {BIG_L}x{BIG_L} benchmark lattice")
     counts, kernel_results["parity_bits_global"] = run_large_n(dev)
     launches["parity_bits_global"] = counts["parity_bits_global"]
+
+    phase(f"10a. sharded tempering: 9a's ladder over {SH_WORLD} gloo ranks on one card")
+    run_sharded_ladder(SH_WORLD, "gloo", "10a", card, out_a["ms_per_sweep_swap"])
+    phase(f"10b. sharded chunk against the unsharded one on the same uniforms, "
+          f"{SH_WORLD} gloo ranks")
+    check_sharded_equal({"9a beta ladder": tc_a, "9c signed ladder": tc_c})
+    cards = torch.cuda.device_count()
+    phase(f"10c. sharded tempering through NCCL: one rank a card, {min(cards, 4)} "
+          f"rank(s)")
+    run_sharded_ladder(1, "nccl", "10c world size 1", card, out_a["ms_per_sweep_swap"])
+    if cards >= 2:
+        run_sharded_ladder(min(cards, 4), "nccl", f"10c world size {min(cards, 4)}", card,
+                           out_a["ms_per_sweep_swap"])
+    else:
+        print("10c: this host has one card: NCCL ran at world size 1 only, not across cards",
+              flush=True)
+    phase(f"10d. dryrun_sharded: a heterogeneous heat-bath ladder over {SH_WORLD} gloo "
+          f"ranks, then an RVB sweep")
+    check_dryrun_sharded(SH_WORLD)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,6 +1,7 @@
 """isingmontecarlo_tpu_torch — the classical engine, the SSE
 transverse-field Ising engine, the generic k-local SSE engine, parallel
-tempering on one device, checkpoints and the analysis helpers of
+tempering on one device or sharded over the ranks of a process group,
+checkpoints, profiling and the analysis helpers of
 ``isingmontecarlo_tpu`` on PyTorch, with hand-written CUDA kernels for an
 NVIDIA Hopper GPU.
 
@@ -11,12 +12,12 @@ tensor runs each kernel's plain PyTorch version and a CUDA tensor the kernel
 """
 
 from isingmontecarlo_tpu_torch import (
-    analysis, checkpoint, classical, lattice, ops, parallel, sse,
+    analysis, checkpoint, classical, lattice, ops, parallel, profiling, sse,
 )
 from isingmontecarlo_tpu_torch.classical import GraphState, LatticeIsing
 from isingmontecarlo_tpu_torch.parallel import TemperingContainer
 from isingmontecarlo_tpu_torch.sse import Qmc, QmcIsingGraph, tfim_model
 
 __all__ = ["GraphState", "LatticeIsing", "Qmc", "QmcIsingGraph", "TemperingContainer",
-           "analysis", "checkpoint", "classical", "lattice", "ops", "parallel", "sse",
-           "tfim_model"]
+           "analysis", "checkpoint", "classical", "lattice", "ops", "parallel", "profiling",
+           "sse", "tfim_model"]

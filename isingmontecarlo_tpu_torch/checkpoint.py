@@ -21,6 +21,14 @@ growth phase, the heat-bath switch, the loop cap), so that a resumed chain
 draws what the original would have drawn. ``load_*(seed=...)`` or a file
 without a generator state (``strip_rng``, or one the JAX package wrote)
 reseeds the generator.
+
+:func:`save_pytree` and :func:`load_pytree` write and read any nested
+tuple, list or dict of tensors in the same layout (JAX's leaf order: dicts
+by sorted key). A sharded tempering container is gathered and written by
+rank 0 in the same layout, with every rank's generator state
+(``meta_torch_rng_ranks``) and the swap generator's
+(``meta_torch_swap_rng``); loaded and sharded again over as many ranks, it
+resumes the same chains.
 """
 
 from __future__ import annotations
@@ -30,6 +38,59 @@ import torch
 
 # jax.random.key_data(jax.random.key(0)): the key a JAX loader finds.
 _JAX_KEY0 = np.zeros(2, np.uint32)
+
+
+def _leaves(tree) -> list:
+    """The leaves of a nested tuple, list or dict (dicts by sorted key, as
+    JAX's ``tree_leaves``; ``None`` holds no leaf)."""
+    if tree is None:
+        return []
+    if isinstance(tree, (tuple, list)):
+        return [leaf for sub in tree for leaf in _leaves(sub)]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _rebuild(like, leaves: list):
+    """``like``'s structure with its leaves taken in order from ``leaves``."""
+    if like is None:
+        return None
+    if isinstance(like, (tuple, list)):
+        parts = [_rebuild(sub, leaves) for sub in like]
+        if isinstance(like, tuple) and hasattr(like, "_fields"):  # a NamedTuple
+            return type(like)(*parts)
+        return type(like)(parts)
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], leaves) for k in sorted(like)}
+    return leaves.pop(0)
+
+
+def save_pytree(path: str, tree, **metadata) -> None:
+    """Write a nested tuple, list or dict of tensors (or arrays or numbers)
+    as ``.npz``: leaves ``leaf{i}`` in :func:`_leaves` order, each
+    ``metadata`` entry as ``meta_{name}`` (the JAX package's
+    ``save_pytree``, ``isingmontecarlo_tpu/checkpoint.py:32-48``), so that
+    either package loads the file."""
+    payload = {f"leaf{i}": (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+                            else np.asarray(leaf))
+               for i, leaf in enumerate(_leaves(tree))}
+    payload.update({f"meta_{k}": np.asarray(v) for k, v in metadata.items()})
+    np.savez(path, **payload)
+
+
+def load_pytree(path: str, like, device: torch.device | str = "cuda"):
+    """A tree saved by :func:`save_pytree` or by the JAX package's: ``like``
+    gives the structure (its leaf values are ignored); the leaves come back
+    as tensors on ``device``, a JAX key (``key{i}``) as its raw ``uint32``
+    data. Returns ``(tree, metadata)``, the metadata as numpy arrays."""
+    with np.load(path) as data:
+        n = len(_leaves(like))
+        leaves = [torch.from_numpy(np.array(data[f"key{i}"] if f"key{i}" in data.files
+                                            else data[f"leaf{i}"])).to(device)
+                  for i in range(n)]
+        meta = {k[5:]: data[k] for k in data.files if k.startswith("meta_")}
+    return _rebuild(like, leaves), meta
 
 
 def _save(path: str, sse, *extra_leaves, **meta) -> None:
@@ -190,27 +251,62 @@ def load_qmc(path: str, *, seed: int | None = None, device: torch.device | str =
 # -- TemperingContainer (SerializeTemperingContainer) ---------------------------
 
 
+def _sharded_rng_meta(container, strip_rng: bool) -> dict:
+    """Every rank's sweep generator state and the swap generator's, for a
+    sharded container (gathered: every rank calls it alike)."""
+    from isingmontecarlo_tpu_torch.parallel import _dist
+
+    if strip_rng:
+        return {}
+    gen = container.graph.draws.generator
+    mine = gen.get_state().to(container.device)[None]
+    states = _dist.all_gather(mine, container._shard.group, tag="checkpoint").cpu().numpy()
+    swap = container._shard.draws.swap_draws.generator
+    return {"torch_rng": states[0], "torch_rng_device": gen.device.type,
+            "torch_rng_ranks": states, "torch_swap_rng": swap.get_state().numpy()}
+
+
 def save_tempering(path: str, container, *, strip_rng: bool = False) -> None:
     """Checkpoint a :class:`~isingmontecarlo_tpu_torch.parallel.TemperingContainer`:
-    states, per-replica labels and the swap bookkeeping."""
+    states, per-replica labels and the swap bookkeeping. Every rank of a
+    sharded container calls it: the blocks are gathered, rank 0 writes the
+    file, and no rank returns before it is written."""
     container._finalize()
     g = container.graph
-    _save(
-        path, g.sse, container.betas, **_edges_meta(g.edges), transverse=g.transverse,
-        longitudinal=g.longitudinal, replicas=g.replicas, parity=container._parity,
-        total_swaps=container.total_swaps, scales=container.scales.cpu().numpy(),
-        # Signed ladders' sign patterns; an empty array means unsigned.
-        xors=(container.xors.cpu().numpy() if container.xors is not None
-              else np.zeros((0, 0), np.int32)),
-        strip_rng=strip_rng, **_rng_meta(g.draws.generator, strip_rng), **_host_meta(g),
-        heatbath=container._heatbath,
-    )
+    sse, glob = g.sse, container._global
+    if container._shard:
+        ops = sse.ops
+        sse = type(sse)(type(ops)(*(glob(t, t.dim() - 1, "checkpoint") for t in ops)),
+                        glob(sse.state, 0, "checkpoint"))
+        rng = _sharded_rng_meta(container, strip_rng)
+    else:
+        rng = _rng_meta(g.draws.generator, strip_rng)
+    xors = (glob(container.xors, 0, "checkpoint").cpu().numpy() if container.xors is not None
+            else np.zeros((0, 0), np.int32))  # an empty array means unsigned
+    scales = glob(container.scales, 0, "checkpoint").cpu().numpy()
+    betas = glob(container.betas, 0, "checkpoint")
+    if container._shard is None or container._shard.rank == 0:
+        _save(path, sse, betas, **_edges_meta(g.edges), transverse=g.transverse,
+              longitudinal=g.longitudinal, replicas=container.replicas,
+              parity=container._parity, total_swaps=container.total_swaps, scales=scales,
+              xors=xors, strip_rng=strip_rng, **rng, **_host_meta(g),
+              heatbath=container._heatbath)
+    if container._shard:
+        from isingmontecarlo_tpu_torch.parallel import _dist
+
+        # A barrier: rank 0 has written the file when every rank returns.
+        _dist.all_reduce_max(torch.zeros(1, dtype=torch.int32, device=container.device),
+                             container._shard.group, tag="checkpoint")
 
 
 def load_tempering(path: str, *, seed: int | None = None,
                    device: torch.device | str = "cuda"):
     """A ``TemperingContainer`` from :func:`save_tempering`'s file or the
-    JAX package's."""
+    JAX package's. A file of a sharded container loads whole on every rank;
+    :meth:`~isingmontecarlo_tpu_torch.parallel.TemperingContainer.shard_over`
+    over as many ranks then restores each rank's generators. With ``seed``
+    the container is seeded from it instead, and so are the ranks'
+    generators when it is sharded."""
     from isingmontecarlo_tpu_torch.convert import tempering_from_numpy
 
     leaves, meta = _load(path)
@@ -218,10 +314,14 @@ def load_tempering(path: str, *, seed: int | None = None,
         _edges(meta), float(meta["transverse"]), float(meta["longitudinal"]),
         bond=leaves[0], inputs=leaves[1], outputs=leaves[2], state=leaves[3],
         betas=leaves[5], scales=meta.get("scales"), xors=meta.get("xors"),
-        parity=int(meta["parity"]), total_swaps=int(meta["total_swaps"]), device=device,
+        parity=int(meta["parity"]), total_swaps=int(meta["total_swaps"]),
+        seed=0 if seed is None else seed, device=device,
     )
     _restore_rng(tc.graph.draws.generator, meta, seed)
     _restore_host(tc.graph, meta)
     if "heatbath" in meta:
         tc.set_enable_heatbath(bool(meta["heatbath"]))
+    if seed is None and "torch_rng_ranks" in meta:
+        tc._resume_rng = (torch.from_numpy(np.array(meta["torch_rng_ranks"], np.uint8)),
+                          torch.from_numpy(np.array(meta["torch_swap_rng"], np.uint8)))
     return tc

@@ -8,7 +8,7 @@ from isingmontecarlo_tpu_torch.sse import (
     cluster, debug, diagonal, loops, opstring, runner, rvb,
 )
 from isingmontecarlo_tpu_torch.sse.cluster import (
-    cluster_update, cluster_update_impl, segment_graph,
+    cluster_labels, cluster_update, cluster_update_impl, segment_graph,
 )
 from isingmontecarlo_tpu_torch.sse.diagonal import (
     HeatBathTables, diagonal_update, make_heatbath_tables,
@@ -32,7 +32,7 @@ from isingmontecarlo_tpu_torch.sse.runner import (
     Interaction, Qmc, generic_multi_sweep, generic_sweep,
 )
 from isingmontecarlo_tpu_torch.sse.rvb import (
-    GeneratorRvbDraws, RvbDraws, RvbTables, make_rvb_tables, rvb_sweep,
+    GeneratorRvbDraws, RvbDraws, RvbTables, make_rvb_tables, rvb_sweep, rvb_update_once,
 )
 
 __all__ = [
@@ -52,6 +52,7 @@ __all__ = [
     "RvbTables",
     "SseState",
     "cluster",
+    "cluster_labels",
     "cluster_update",
     "cluster_update_impl",
     "debug",
@@ -72,6 +73,7 @@ __all__ = [
     "runner",
     "rvb",
     "rvb_sweep",
+    "rvb_update_once",
     "segment_graph",
     "sweep",
     "tfim_model",

@@ -53,6 +53,13 @@ class SegGraph(NamedTuple):
     S: int  # label-space size
 
 
+def is_valid_cluster_edge(is_constant, nvars):
+    """Whether an op can bound a cluster in imaginary time: constant
+    single-variable ops only (``is_valid_cluster_edge``,
+    ``cluster.rs:280-286``). Takes numbers or tensors."""
+    return torch.as_tensor(is_constant, dtype=torch.bool) & (torch.as_tensor(nvars) == 1)
+
+
 def segment_graph(ops: OpString, model: BondModel) -> SegGraph:
     """Contract worldline runs between cluster-edge ops into supernodes.
 
@@ -185,6 +192,23 @@ def compact_dispatch(sg: SegGraph, consume: Callable,
     if overflow_noop is not None:
         return overflow_noop
     return consume(hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S)
+
+
+def cluster_labels(ops: OpString, model: BondModel, label_cap: int | None = None,
+                   edge_cap: int | None = None) -> torch.Tensor:
+    """Min-label clusters over the op sides, ``i32[2M, R]`` (node ``2p`` the
+    input side of slot ``p``, ``2p + 1`` its output side), through the
+    contracted segment graph (``isingmontecarlo_tpu/sse/cluster.py:586``).
+    The values are component-minimum segment ids: equal labels define the
+    partition. Invalid slots share the dump segment's label."""
+    sg = segment_graph(ops, model)
+    M, R = ops.bond.shape
+
+    def consume(W, s_in, s_out, SL):
+        lab_in, lab_out = take0(W, s_in.contiguous(), s_out.contiguous())
+        return torch.stack([lab_in, lab_out], dim=1).reshape(2 * M, R)
+
+    return compact_dispatch(sg, consume, label_cap=label_cap, edge_cap=edge_cap)
 
 
 def root_flip_prob(lab_in, lab_out, valid_op, w_cur, w_flip, SL: int,

@@ -192,18 +192,30 @@ def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
                 hb: HeatBathTables | None = None, heatbath: bool = False,
                 bond_scale: torch.Tensor | None = None,
                 rvb_tables: _rvb.RvbTables | None = None, n_rvb: int = 0,
-                rvb_compact: int | None = None, bond_xor: torch.Tensor | None = None):
+                rvb_compact: int | None = None, bond_xor: torch.Tensor | None = None,
+                cluster_flags: Sequence[bool] | torch.Tensor | None = None):
     """``nsweeps`` timesteps; ``next_draws()`` gives each one's draws.
 
     The cluster update runs on every ``cluster_every``-th timestep only
-    (``k = 1`` is the reference composition). Returns ``(sse, ns i32[T, R],
-    states bool[T, R, N] or None, rvb_successes i32[R])``, ``ns`` the op
-    count after each step and the successes summed over the steps."""
+    (``k = 1`` is the reference composition), or on the timesteps that
+    ``cluster_flags`` (``nsweeps`` bools, or a bool tensor read once on the
+    host) marks, which overrides ``cluster_every``
+    (``isingmontecarlo_tpu/sse/ising.py:224, 265-271``). Returns ``(sse, ns
+    i32[T, R], states bool[T, R, N] or None, rvb_successes i32[R])``, ``ns``
+    the op count after each step and the successes summed over the steps."""
+    if cluster_flags is None:
+        flags = [i % cluster_every == cluster_every - 1 for i in range(nsweeps)]
+    else:
+        flags = [bool(f) for f in (cluster_flags.tolist()
+                                   if isinstance(cluster_flags, torch.Tensor)
+                                   else cluster_flags)]
+        if len(flags) != nsweeps:
+            raise ValueError(f"{len(flags)} cluster_flags for {nsweeps} timesteps")
     ns, states = [], []
     succ = torch.zeros((sse.state.shape[0],), dtype=torch.int32, device=sse.state.device)
     for i in range(nsweeps):
         sse, s = sweep(sse, beta, model, next_draws(), cluster_caps=cluster_caps,
-                       do_cluster=i % cluster_every == cluster_every - 1,
+                       do_cluster=flags[i],
                        hb=hb, heatbath=heatbath, bond_scale=bond_scale,
                        rvb_tables=rvb_tables, n_rvb=n_rvb, rvb_compact=rvb_compact,
                        bond_xor=bond_xor)
@@ -299,6 +311,10 @@ class QmcIsingGraph:
         # 16-quantized; see _maybe_grow). None until first measured.
         self._cluster_caps: tuple[int, int] | None = None
         self._cluster_every = 1
+        # Reduces the growth statistics over the ranks of a sharded
+        # tempering container (TemperingContainer.shard_over), so that every
+        # rank grows alike; None on one device.
+        self._reduce_max: Callable[[torch.Tensor], torch.Tensor] | None = None
         if state is None:
             spins = self.draws.free_spins((replicas, self.nvars))
         else:
@@ -656,15 +672,20 @@ class QmcIsingGraph:
     def _maybe_grow(self) -> None:
         """Cutoff growth ``M = max(M, n + n/2)`` (``qmc_ising.rs:786``),
         quantized to multiples of 16, and a refresh of the cluster label
-        caps and of the RVB compaction cutoff. Two host reads."""
-        n_max = int(_ops.op_count(self.sse.ops).max())
+        caps and of the RVB compaction cutoff. One host read, of maxima over
+        the replicas (and over the ranks, through ``_reduce_max``, on a
+        sharded container)."""
+        stats = torch.stack([_ops.op_count(self.sse.ops).max().to(torch.int64),
+                             *cap_counts(self.sse.ops, self.model)])
+        if self._reduce_max is not None:
+            stats = self._reduce_max(stats)
+        n_max, nc, nm = (int(x) for x in stats.tolist())
         want = n_max + n_max // 2
         if want > self.cutoff:
             new_m = ((want + 15) // 16) * 16
             self.sse = self.sse._replace(ops=_ops.grow(self.sse.ops, new_m))
         if self._run_rvb:
             self._rvb_compact = rvb_compact_cutoff(n_max, self._rvb_compact, self.cutoff)
-        nc, nm = (int(x) for x in torch.stack(cap_counts(self.sse.ops, self.model)).tolist())
         N = self.nvars
         want_l = max(256, 16 * ((int((nc + N + 2) * 1.3) + 15) // 16))
         want_e = max(256, 16 * ((int((nm + N + 2) * 1.3) + 15) // 16))

@@ -127,6 +127,15 @@ class RvbDraws(Protocol):
         for the one-shot pass)."""
 
 
+def contiguous_bits(u: torch.Tensor) -> torch.Tensor:
+    """``n`` with probability ``2^-(n+1)`` from uniforms ``u`` in ``[1e-19,
+    1)``: the reference's trailing-ones draw that sizes an RVB spacetime
+    cluster (``contiguous_bits``, ``rvb.rs:1190-1192``; the JAX package's,
+    ``isingmontecarlo_tpu/sse/rvb.py:64``), capped at 64 as a ``u64`` draw
+    is. ``i32`` of ``u``'s shape."""
+    return torch.floor(-torch.log2(u)).to(torch.int32).clamp(0, 64)
+
+
 def gumbel(u: torch.Tensor) -> torch.Tensor:
     """Gumbel variates from uniforms in ``[0, 1)``, in place, as
     ``jax.random.gumbel`` makes them: ``-log(-log(u))`` with ``u`` bounded
@@ -249,7 +258,7 @@ def build_clusters(inv: Inventory, tables: RvbTables, u_seed: torch.Tensor,
     zvar = (zcum >= (pick - ncount + 1)[..., None]).to(torch.uint8).argmax(dim=-1)
     seed_elem = torch.where(pick < ncount, pick.long(), M + zvar)
     # Geometric pop count: k pops with probability 2^-k.
-    remaining = (1 + torch.floor(-torch.log2(u_size)).to(torch.int32)).clamp(1, MAX_POPS)
+    remaining = (1 + contiguous_bits(u_size)).clamp(1, MAX_POPS)
 
     w = torch.zeros((G, R, M + N), dtype=torch.float32, device=dev)
     w.scatter_(2, seed_elem[..., None], 1.0)
@@ -653,6 +662,16 @@ def rvb_sweep(ops: OpString, state: torch.Tensor, draws: RvbDraws, model: BondMo
                      torch.where(fits, unc.outputs, ops.outputs)),
             torch.where(fits[:, None], new_state, state),
             torch.where(fits, succ, 0))
+
+
+def rvb_update_once(ops: OpString, state: torch.Tensor, draws: RvbDraws, model: BondModel,
+                    tables: RvbTables):
+    """One RVB update of every replica on ``draws`` (of one update):
+    :func:`rvb_sweep` with ``n_updates = 1`` (the JAX package's
+    ``rvb_update_once``, ``isingmontecarlo_tpu/sse/rvb.py:1328``). Returns
+    ``(ops, state, accepted bool[R])``."""
+    ops, state, succ = rvb_sweep(ops, state, draws, model, tables, 1)
+    return ops, state, succ > 0
 
 
 def _rvb_sweep_impl(ops, state, draws: RvbDraws, model, tables, n_updates):
