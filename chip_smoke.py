@@ -15,14 +15,20 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    the latter, and each kernel's bound (bytes or operations at the card's
    published peaks; for K1 also the instruction-issue bound of its inner
    loop's SASS, for K3 and K3-hb the bound of their carry chain in the
-   SASS, for K2 the issue bound of its three kernels' loops). K1's
-   global-memory variant at ragged L and at 2048^2, R=2, where no cluster
-   holds the field; K2 at K = 1..6 on ragged shapes. K3 and K3-hb also at
-   ragged shapes and on tie-heavy inputs, whose
-   slots sit on the comparisons' edge, timed on those too. K2's
-   global-memory variant at K = 1..6 on ragged shapes and, through
-   ``parity_bits``, at K=2, M=7000, R=64, N=36,864 (past the shared-memory
-   limit of N = 29,056), timed there beside its byte bound. K4's three
+   SASS, for K2 the issue bound of its three kernels' loops). K1's banded
+   variant at ragged L (called directly) and, through the default dispatch
+   with its launches asserted, at L=1362, 2048 (R=2), 4096 (R=2 and 3: a
+   launch a wave), timed at 2048^2, R=2 in turns with the global-memory
+   variant (whose split between plane passes and half-steps is printed),
+   and the global-memory variant at L=6000, past the card's resident
+   shared memory; K2 at K = 1..6 on ragged shapes, each with distinct legs
+   and with slots naming one variable on two and three toggled legs. K3
+   and K3-hb also at ragged shapes and on tie-heavy inputs, whose slots sit
+   on the comparisons' edge, timed on those too. K2's wide and
+   global-memory variants at K = 1..6 on ragged shapes (the same two kinds
+   of legs) and, through ``parity_bits`` with the launches asserted, at
+   K=2, M=7000, R=64, N=36,864 (the wide variant, timed in turns with the
+   global one) and N=60,000 (the global variant, timed). K4's three
    entry points (``take0`` on one and on two grids, ``hook_min``,
    ``pointer_jump``) beside ``torch.gather``, and one
    hook round as the port ran it before (gathers, ``scatter_reduce``,
@@ -49,10 +55,12 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    spin-flip attempts/s, then the README's ``GraphState`` quickstart on the
    same lattice and worms on a small frustrated lattice; K1 must have been
    launched by this run.
-6b. The classical path past shared memory: ``LatticeIsing(2048,
-   replicas=2)`` through K1's global variant, equal to the plain version
-   on one call, then its energy per site against Onsager's at beta=0.3;
-   the global variant, and not the cluster kernel, must have been launched.
+6b. The classical path past shared memory: ``LatticeIsing(6000)``
+   through K1's global variant, equal to the plain version on one call,
+   and ``LatticeIsing(2048, replicas=2)`` through its banded variant, equal
+   to the plain version on one call, then its energy per site against
+   Onsager's at beta=0.3; the banded variant and one call of the global
+   variant, and not the cluster kernel, must have been launched.
 7. The RVB path: ``QmcIsingGraph`` on the 16x16 benchmark lattice at
    R=16, beta=10, cutoff hint 14000, grown without RVB, then with
    ``set_run_rvb(True)`` (128 updates a timestep, the JAX suite's
@@ -104,11 +112,12 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    signed ladder of ``tests/test_tempering_hetero.py`` against ED within
    5 SE. (e) 9a's container, phase 5's graph and a ``Qmc`` saved, run,
    loaded and run again: ``torch.equal``. (f) The 176x176 benchmark
-   lattice (N = 30,976, past K2's shared-memory limit) at beta=0.1, R=32,
-   ``verify()`` after each timestep, N x M below 2^30, K2 through its
-   global variant alone; then that variant against its plain version on
-   the arguments of one call recorded from one more sweep (``torch.equal``)
-   and timed there: its row in the ``kernels`` line.
+   lattice (N = 30,976, past K2's shared variant's limit) at beta=0.1,
+   R=32, ``verify()`` after each timestep, N x M below 2^30, K2 through its
+   wide variant alone; then ``parity_bits`` on the arguments of one call
+   recorded from one more sweep: the wide variant alone, ``torch.equal`` to
+   its plain version, timed there in turns with the global variant and
+   split by pass: its row in the ``kernels`` line.
 10. Parallel tempering sharded over the ranks of a ``torch.distributed``
    process group (``TemperingContainer.shard_over``), the ranks spawned by
    ``parallel._dist.spawn``. (a) 9a's ladder over four gloo ranks sharing
@@ -182,8 +191,11 @@ C_TAKE, E_TAKE = 8000, 7000
 L_CB, R_CB, SWEEPS_CB, BETA_CB = 256, 64, 100, 0.4
 # K1 beyond one block's shared memory: only c = 8 CTAs a replica hold it.
 L_BIG, R_BIG, SWEEPS_BIG = 1024, 2, 4
-# K1 beyond every cluster's shared memory: its global-memory variant.
+# K1 beyond every cluster's shared memory: its banded variant.
 L_HUGE, R_HUGE, SWEEPS_HUGE = 2048, 2, 4
+# K1 past the card's resident shared memory (one replica's bands would need
+# more CTAs than SMs): its global-memory variant.
+L_PAST, R_PAST, SWEEPS_PAST = 6000, 1, 2
 
 # The RVB path: the JAX suite's two_d_rvb_16 row (bench.py:443-449, 285):
 # Gamma=1, beta=10, R=16, (N + 1) // 2 = 128 updates a timestep, cutoff
@@ -219,10 +231,14 @@ WARP_ISSUE_PER_CLOCK_PER_SM = 4
 KERNEL_INFO = {
     "checkerboard_multi_sweep": ("isingmontecarlo_tpu_torch/csrc/checkerboard.cu",
                                  "isingmontecarlo_tpu/ops/checkerboard.py:117"),
+    "checkerboard_multi_sweep_bands": ("isingmontecarlo_tpu_torch/csrc/checkerboard_bands.cu",
+                                       "isingmontecarlo_tpu/ops/checkerboard.py:117"),
     "checkerboard_multi_sweep_global": ("isingmontecarlo_tpu_torch/csrc/checkerboard_global.cu",
                                         "isingmontecarlo_tpu/ops/checkerboard.py:117"),
     "parity_bits": ("isingmontecarlo_tpu_torch/csrc/parity_bits.cu",
                     "isingmontecarlo_tpu/ops/parity_kernel.py:95"),
+    "parity_bits_wide": ("isingmontecarlo_tpu_torch/csrc/parity_bits.cu",
+                         "isingmontecarlo_tpu/ops/parity_kernel.py:95"),
     "parity_bits_global": ("isingmontecarlo_tpu_torch/csrc/parity_bits_global.cu",
                            "isingmontecarlo_tpu/ops/parity_kernel.py:95"),
     "carry_decisions": ("isingmontecarlo_tpu_torch/csrc/carry_metropolis.cu",
@@ -277,14 +293,12 @@ def device_rows(prof, what: str) -> list:
     return rows
 
 
-def device_ms(fn, reps: int, attempts: int = 3) -> float:
-    """Mean device milliseconds per call over ``reps`` calls after one
-    warm-up: the kernels, copies and memsets they ran, summed from
-    ``torch.profiler``, without the host's time between launches (which
-    CUDA events around a short kernel would measure instead). A session
-    that records no device time (the profiler drops a short session's
-    events now and then) is run again, up to ``attempts`` sessions in all,
-    and said so; then it raises."""
+def profiled_rows(fn, reps: int, what: str, attempts: int = 3) -> list:
+    """The device-side rows of ``reps`` calls of ``fn`` under
+    ``torch.profiler``, after one warm-up. A session that records no device
+    time, or fewer device events than half the calls (the profiler drops a
+    short session's events now and then), is run again, up to ``attempts``
+    sessions in all, and said so; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -295,13 +309,47 @@ def device_ms(fn, reps: int, attempts: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         try:
-            rows = device_rows(prof, f"{reps} calls")
-            return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+            rows = device_rows(prof, what)
+            if 2 * sum(e.count for e in rows) < reps:
+                raise AssertionError(f"the profile of {what} holds "
+                                     f"{sum(e.count for e in rows)} device events")
+            return rows
         except AssertionError:
             if attempt == attempts:
                 raise
-            print(f"device_ms: profiler session {attempt} recorded no device time; "
-                  f"profiling again", flush=True)
+            print(f"profiler session {attempt} of {what} recorded no device time or too "
+                  f"few device events; profiling again", flush=True)
+
+
+def device_ms(fn, reps: int, attempts: int = 3) -> float:
+    """Mean device milliseconds per call over ``reps`` calls after one
+    warm-up: the kernels, copies and memsets they ran, summed from
+    :func:`profiled_rows`, without the host's time between launches (which
+    CUDA events around a short kernel would measure instead)."""
+    rows = profiled_rows(fn, reps, f"{reps} calls", attempts)
+    return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+
+
+def device_split(fn, reps: int, parts: dict, what: str) -> dict:
+    """Device ms a call of ``fn`` by kernel, summed from
+    :func:`profiled_rows` over ``reps`` calls into the parts of ``parts``
+    ({part: a substring of the kernel's name}; every other row under
+    "other")."""
+    split = {}
+    for e in profiled_rows(fn, reps, what):
+        part = next((p for p, key in parts.items() if key in e.key), "other")
+        split[part] = split.get(part, 0.0) + e.self_device_time_total / 1e3 / reps
+    return split
+
+
+def in_turns(fns: dict, reps: int) -> dict:
+    """Device ms a call (:func:`device_ms`) of each of two entry points,
+    timed in turns (a, b, b, a); returns {name: [both readings]}."""
+    (a, fa), (b, fb) = fns.items()
+    out = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        out[name].append(device_ms(fn, reps))
+    return out
 
 
 def exact_tfim_energy(edges, gamma: float, beta: float, nvars: int,
@@ -578,36 +626,62 @@ def k2_issue_bound(K: int, M: int, R: int, N: int) -> float | None:
     return ms
 
 
-def parity_inputs(rng, dev, K: int, M: int, R: int, N: int) -> tuple:
-    """Random arguments of K2 at any K: the K legs of a slot name distinct
-    variables (as every bond's do), ~10% sentinel legs and queries."""
-    v = np.argsort(rng.random((M, R, N)), axis=-1)[..., :K]
-    v = np.ascontiguousarray(np.moveaxis(v, -1, 0)).astype(np.int32)
+def parity_inputs(rng, dev, K: int, M: int, R: int, N: int, dup: bool = False) -> tuple:
+    """Random arguments of K2 at any K, ~10% sentinel legs and queries. The
+    K legs of a slot name distinct variables (``v0 + k * step`` mod N with
+    ``K * step <= N``, as every TFIM bond's are distinct); with ``dup``, a
+    fifth of the slots name leg 0's variable on leg 1 too, and (K >= 3) a
+    tenth on legs 1 and 2 and another tenth on leg K - 1, with those legs
+    toggled (a generic bond such as ``make_interaction(mat, [v, v])`` makes
+    such slots)."""
+    v0 = rng.integers(0, N, size=(M, R))
+    step = rng.integers(1, max(1, N // K) + 1, size=(M, R))
+    v = ((v0 + np.arange(K)[:, None, None] * step) % N).astype(np.int32)
     vq = rng.integers(0, N, size=(K, M, R)).astype(np.int32)
+    tog = rng.random((K, M, R)) < 0.3
+    if dup and K >= 2:
+        for legs, frac in (([1], 0.2), ([1, 2], 0.1), ([K - 1], 0.1)):
+            if max(legs) >= K:
+                continue
+            m = rng.random((M, R)) < frac
+            for leg in legs:
+                v[leg][m] = v[0][m]
+                tog[leg][m] = True
+            tog[0][m] = True
     v[rng.random((K, M, R)) < 0.1] = N
     vq[rng.random((K, M, R)) < 0.1] = N + 5
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
-                 (rng.random((R, N)) < 0.5, v, rng.random((K, M, R)) < 0.3, vq))
+                 (rng.random((R, N)) < 0.5, v, tog, vq))
+
+
+def parity_equal(fn, label: str, cases, rng, dev) -> None:
+    """``fn`` (a K2 entry point) ``torch.equal`` to the plain version at K =
+    1..6 on each (M, R, N) of ``cases``, on inputs that hold slots with
+    distinct legs and slots that name one variable on two and three toggled
+    legs."""
+    for k in range(1, 7):
+        for m, r, n in cases:
+            args = parity_inputs(rng, dev, k, m, r, n, dup=True)
+            got, want = fn(*args), ops.parity_bits_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{label} differs from its plain version at K={k}, "
+                                     f"M={m}, R={r}, N={n}")
+    print(f"{label} equal to plain at K = 1..6 on (M, R, N) in {list(cases)}, with distinct "
+          f"legs and with slots naming one variable on two and three toggled legs", flush=True)
 
 
 def check_parity(dev, rng, full: tuple) -> dict:
     """Phase 3 for K2: equal to the plain version at K = 1..6 on ragged
     shapes (R not a multiple of 4 or 32, M not a multiple of 4, N not a
-    multiple of 32, one segment and many), and at the 32x32 shape (K=2,
+    multiple of 32, one segment and many; distinct legs, and slots naming
+    one variable on two and three toggled legs), and at the 32x32 shape (K=2,
     M=7000, R=256, N=1024), where both are timed (device ms by
     ``torch.profiler``, the three kernels of a call summed; CUDA events for
     a call), beside the byte bound and the SASS issue bound."""
     ragged = ((37, 5, 9), (301, 48, 40), (130, 33, 37), (7, 1, 6), (1000, 64, 70),
               (700, 256, 1024))
-    for k in range(1, 7):
-        for m, r, n in ragged:
-            args = parity_inputs(rng, dev, k, m, r, n)
-            got, want = ops.parity_bits(*args), ops.parity_bits_plain(*args)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"parity_bits differs from its plain version at K={k}, "
-                                     f"M={m}, R={r}, N={n}")
-    print(f"parity_bits equal to plain at K = 1..6 on (M, R, N) in {list(ragged)}", flush=True)
+    parity_equal(ops.parity_bits, "parity_bits", ragged, rng, dev)
     got, want = ops.parity_bits(*full), ops.parity_bits_plain(*full)
     torch.cuda.synchronize()
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
@@ -695,44 +769,107 @@ def check_checkerboard(dev) -> dict:
     return res
 
 
-def check_checkerboard_global(dev) -> dict:
-    """Phase 3 for K1's global-memory variant: equal to the plain version at
-    ragged shapes (L=6: the byte path; L=10: H=5 bytes a row; L=16: words)
-    and at L=2048, R=2, where no cluster holds the field and the default
-    dispatch takes it; both timed there."""
+K1_ENTRIES = ("checkerboard_multi_sweep", "checkerboard_multi_sweep_bands",
+              "checkerboard_multi_sweep_global")
+
+
+def checkerboard_through_dispatch(spins, args, want: dict) -> torch.Tensor:
+    """K1 through ``checkerboard_multi_sweep`` (the default dispatch):
+    equal to the plain version, changing some spin, with K1's launch counts
+    exactly ``want`` (by entry point, missing ones 0). Returns the spins."""
+    expect = {name: want.get(name, 0) for name in K1_ENTRIES}
+    wanted = ops.checkerboard_multi_sweep_plain(spins, *args)
+    ops.reset_launch_counts()
+    got = ops.checkerboard_multi_sweep(spins, *args)
+    torch.cuda.synchronize()
+    counts = {name: ops.launch_counts()[name] for name in K1_ENTRIES}
+    if counts != expect:
+        raise AssertionError(f"{tuple(spins.shape)}: K1's launches {counts}, not {expect}")
+    if not torch.equal(got, wanted) or torch.equal(got, spins):
+        raise AssertionError(f"checkerboard_multi_sweep differs from its plain version at "
+                             f"{tuple(spins.shape)}, or changed no spin")
+    return got
+
+
+def check_checkerboard_bands(dev) -> tuple[dict, dict]:
+    """Phase 3 for K1 past the cluster variant. The banded variant (called
+    directly) equal to the plain version at ragged shapes (L=6: the byte
+    path, bands of one row; L=10: H=5; L=8, 16: words, bands of one row);
+    then through the default dispatch, equal to plain, with the launches
+    asserted: L=1362 (byte path), 2048 at R=2 (one wave), 4096 at R=2 (two
+    waves) and R=3 (three waves, bands of 31 or 32 rows), and L=6000, past
+    the card's resident shared memory, where the global variant runs. At
+    2048^2, R=2 the banded and the global variant (this field's only path
+    before) are timed in turns, with the global variant's split between its
+    plane passes and its half-steps; the banded variant's row from there,
+    the global variant's from L=6000."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    for Rc, L, nsweeps in ((3, 6, 5), (2, 10, 3), (3, 16, 4), (1, 1362, 2)):
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Rc, L, nsweeps in ((3, 6, 5), (2, 10, 3), (1, 8, 3), (3, 16, 4)):
         spins = torch.rand((Rc, L, L), generator=gen, device=dev) < 0.5
         want = ops.checkerboard_multi_sweep_plain(spins, 77, 0.7, -1.0, 0.3, nsweeps)
-        got = ops.checkerboard_multi_sweep_global(spins, 77, 0.7, -1.0, 0.3, nsweeps)
+        got = ops.checkerboard_multi_sweep_bands(spins, 77, 0.7, -1.0, 0.3, nsweeps)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"checkerboard_multi_sweep_global differs from its plain "
+            raise AssertionError(f"checkerboard_multi_sweep_bands differs from its plain "
                                  f"version at {tuple(spins.shape)}, {nsweeps} sweeps")
+    for Rc, L in ((1, 1362), (R_HUGE, L_HUGE), (2, 4096), (3, 4096)):
+        plan = cb.k1_global_plan(Rc, L, n_sms)
+        if plan["path"] != "bands":
+            raise AssertionError(f"L={L} does not take K1's banded variant: {plan}")
+        spins = torch.rand((Rc, L, L), generator=gen, device=dev) < 0.5
+        checkerboard_through_dispatch(spins, (5, 0.4, -1.0, 0.1, 2),
+                                      {"checkerboard_multi_sweep_bands": len(plan["waves"])})
+        print(f"checkerboard_multi_sweep_bands equal to plain at {tuple(spins.shape)}, 2 "
+              f"sweeps, through the default dispatch: {len(plan['waves'])} launch(es), waves "
+              f"(first replica, replicas, bands a replica) {plan['waves']}", flush=True)
+
     spins = torch.rand((R_HUGE, L_HUGE, L_HUGE), generator=gen, device=dev) < 0.5
     args = (12345, BETA_CB, -1.0, 0.1, SWEEPS_HUGE)
+    got = checkerboard_through_dispatch(spins, args, {"checkerboard_multi_sweep_bands": 1})
     want = ops.checkerboard_multi_sweep_plain(spins, *args)
-    before = ops.checkerboard_multi_sweep_global.launches
-    got = ops.checkerboard_multi_sweep(spins, *args)  # the default dispatch at this L
-    torch.cuda.synchronize()
-    if cb.k1_variant(L_HUGE) != "global" or ops.checkerboard_multi_sweep_global.launches != before + 1:
-        raise AssertionError(f"L={L_HUGE} did not take K1's global variant")
-    if not torch.equal(got, want) or torch.equal(got, spins):
-        raise AssertionError(f"checkerboard_multi_sweep_global differs from its plain version "
-                             f"at {tuple(spins.shape)}, or changed no spin")
+    err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    times = in_turns({"checkerboard_multi_sweep_global":
+                      lambda: ops.checkerboard_multi_sweep_global(spins, *args),
+                      "checkerboard_multi_sweep_bands":
+                      lambda: ops.checkerboard_multi_sweep_bands(spins, *args)}, 10)
+    ms = float(np.mean(times["checkerboard_multi_sweep_bands"]))
+    call_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_bands(spins, *args), 10)
+    plain_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_plain(spins, *args), 1)
+    attempts = spins.numel() * SWEEPS_HUGE
+    bands = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             **bound(2 * nbytes(spins), attempts * K1_OPS_PER_ATTEMPT), "library_ms": None}
+    split = device_split(lambda: ops.checkerboard_multi_sweep_global(spins, *args), 10,
+                         {"planes": "planes_kernel", "half-steps": "half_step_kernel"},
+                         "the global variant at 2048^2")
+    print(f"checkerboard_multi_sweep_bands at {tuple(spins.shape)}, {SWEEPS_HUGE} sweeps: "
+          f"equal to plain (max_abs_err {err}); device ms in turns with the global variant "
+          f"{json.dumps(times)} (the global variant's recorded row: 0.1208); the banded "
+          f"{ms:.4f} ms ({call_ms:.4f} ms a call, CUDA events), plain {plain_ms:.4f} ms, bound "
+          f"{bands['bound_ms']:.4f} ms ({bands['bound_by']}, published f32 peak); "
+          f"{attempts / (ms * 1e-3):.4e} attempts/s in the kernel; the global variant's "
+          f"device ms a call by pass {json.dumps(split)}", flush=True)
+
+    spins = torch.rand((R_PAST, L_PAST, L_PAST), generator=gen, device=dev) < 0.5
+    args = (99, BETA_CB, -1.0, 0.1, SWEEPS_PAST)
+    if cb.k1_variant(L_PAST, n_sms) != "global":
+        raise AssertionError(f"L={L_PAST} does not take K1's global variant")
+    got = checkerboard_through_dispatch(spins, args, {"checkerboard_multi_sweep_global": 1})
+    want = ops.checkerboard_multi_sweep_plain(spins, *args)
     err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     ms = device_ms(lambda: ops.checkerboard_multi_sweep_global(spins, *args), 10)
     call_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_global(spins, *args), 10)
     plain_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_plain(spins, *args), 1)
-    attempts = spins.numel() * SWEEPS_HUGE
-    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound(2 * nbytes(spins), attempts * K1_OPS_PER_ATTEMPT), "library_ms": None}
-    print(f"checkerboard_multi_sweep_global: equal to plain at L=6, 10, 16, 1362 and "
-          f"{tuple(spins.shape)} (max_abs_err {err}); {SWEEPS_HUGE} sweeps {ms:.4f} ms on the "
-          f"device ({2 * SWEEPS_HUGE + 2} kernels; {call_ms:.4f} ms a call, CUDA events), plain "
-          f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, published "
-          f"f32 peak); {attempts / (ms * 1e-3):.4e} attempts/s in the kernels", flush=True)
-    return res
+    attempts = spins.numel() * SWEEPS_PAST
+    glob = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(2 * nbytes(spins), attempts * K1_OPS_PER_ATTEMPT), "library_ms": None}
+    print(f"checkerboard_multi_sweep_global at {tuple(spins.shape)}, {SWEEPS_PAST} sweeps, "
+          f"through the default dispatch: equal to plain (max_abs_err {err}); "
+          f"{ms:.4f} ms on the device ({2 * SWEEPS_PAST + 2} kernels; {call_ms:.4f} ms a call, "
+          f"CUDA events), plain {plain_ms:.4f} ms, bound {glob['bound_ms']:.4f} ms "
+          f"({glob['bound_by']}, published f32 peak); {attempts / (ms * 1e-3):.4e} attempts/s "
+          f"in the kernels", flush=True)
+    return bands, glob
 
 
 def label_inputs(rng, dev, S: int, E: int, Mg: int, R: int):
@@ -937,13 +1074,13 @@ def check_kernels(dev) -> tuple[dict, dict]:
     """Phase 3: every kernel equals its plain version on the card, at a
     small ragged shape and at the main-path shape, where both are timed.
     Returns the per-kernel results and K3's and K3-hb's chain bounds."""
-    results = {"checkerboard_multi_sweep": check_checkerboard(dev),
-               "checkerboard_multi_sweep_global": check_checkerboard_global(dev),
-               **check_labels(dev)}
+    results = {"checkerboard_multi_sweep": check_checkerboard(dev), **check_labels(dev)}
+    (results["checkerboard_multi_sweep_bands"],
+     results["checkerboard_multi_sweep_global"]) = check_checkerboard_bands(dev)
     rng = np.random.default_rng(0)
     full = kernel_inputs(rng, dev, K, M, R, N)
     results["parity_bits"] = check_parity(dev, rng, full["parity_bits"])
-    results["parity_bits_global"] = check_parity_global(dev, rng)
+    results["parity_bits_global"] = check_parity_variants(dev, rng)
     carry_bounds = carry_chain_bounds(M)
     return {**results, **check_carry(dev, rng, full, carry_bounds)}, carry_bounds
 
@@ -1241,11 +1378,23 @@ def run_classical(dev) -> dict:
 
 def run_classical_global(dev) -> dict:
     """Phase 6b: ``LatticeIsing(2048, replicas=2)``, a field that no cluster
-    holds, through K1's global variant: a call equal to the plain version
+    holds, through K1's banded variant: a call equal to the plain version
     on the same spins and seed, then the energy per site at beta=0.3 after
     equilibration against Onsager's value (the correlation length is a few
-    sites, so 2048^2 is the infinite lattice to within the statistics)."""
+    sites, so 2048^2 is the infinite lattice to within the statistics).
+    Then ``LatticeIsing(6000, replicas=1)``, past the card's resident shared
+    memory, through K1's global variant: a call equal to the plain
+    version."""
     t0 = time.perf_counter()
+    g = LatticeIsing(L_PAST, j=-1.0, replicas=R_PAST, seed=4, device=dev)
+    start = g.spins.clone()
+    g.run_sweeps(SWEEPS_PAST, 0.3)
+    want = ops.checkerboard_multi_sweep_plain(start, 4 * 1000003 + 1, 0.3, -1.0, 0.0,
+                                              SWEEPS_PAST)
+    if not torch.equal(g.spins, want):
+        raise AssertionError(f"LatticeIsing({L_PAST}) differs from the plain version")
+    print(f"LatticeIsing({L_PAST}, replicas={R_PAST}): a call of {SWEEPS_PAST} sweeps equal "
+          f"to the plain version", flush=True)
     g = LatticeIsing(L_HUGE, j=-1.0, replicas=R_HUGE, seed=9, device=dev)
     start = g.spins.clone()
     g.run_sweeps(SWEEPS_HUGE, 0.3)
@@ -1745,52 +1894,78 @@ def check_generic_physics(dev) -> None:
             raise AssertionError(f"{label}: K2 was not launched")
 
 
-# -- Phase 3: K2's global-memory variant ------------------------------------------------
+# -- Phase 3: K2's wide and global-memory variants ------------------------------------
 
-# K2 past the shared-memory limit (N > 29,056): K=2, the 192x192 benchmark
-# lattice's N, M as on the 32x32 slice, R=64.
+# K2 past the shared variant's limit (N > 29,056): K=2, the 192x192 benchmark
+# lattice's N, M as on the 32x32 slice, R=64 (the wide variant); and past
+# the wide variant's (N > 53,472), where the global variant takes it.
 K2G_SHAPE = (2, 7000, 64, 36_864)
+K2_PAST_SHAPE = (2, 500, 32, 60_000)
+# The wide variant's passes by kernel name (the scratch's zeroing is "other").
+K2_WIDE_PASSES = {"toggles": "parity_toggles_wide", "prefix": "parity_prefix_kernel",
+                  "walk": "parity_bits_wide_kernel", "state": "parity_state_bits"}
+# The entry point of each K2 variant, whose launch counter shows the dispatch.
+K2_ENTRIES_BY_VARIANT = {"shared": "parity_bits", "wide": "parity_bits_wide",
+                         "global": "parity_bits_global"}
+K2_ENTRIES = tuple(K2_ENTRIES_BY_VARIANT.values())
 
 
-def check_parity_global(dev, rng) -> dict:
-    """Phase 3 for K2's global-memory variant: equal to the plain version at
-    K = 1..6 on ragged shapes (called directly), and through ``parity_bits``
-    at K=2, M=7000, R=64, N=36,864, where only the global variant may
-    launch; timed there (device ms by ``torch.profiler``) beside the byte
-    bound over 3.35 TB/s and the plain version."""
-    ragged = ((37, 5, 9), (301, 48, 40), (130, 33, 37), (7, 1, 6), (1000, 64, 70))
-    for k in range(1, 7):
-        for m, r, n in ragged:
-            args = parity_inputs(rng, dev, k, m, r, n)
-            got, want = ops.parity_bits_global(*args), ops.parity_bits_plain(*args)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"parity_bits_global differs from its plain version at "
-                                     f"K={k}, M={m}, R={r}, N={n}")
-    k2, m2, r2, n2 = K2G_SHAPE
-    full = kernel_inputs(rng, dev, k2, m2, r2, n2)["parity_bits"]
+def parity_through_dispatch(shape: tuple, want_variant: str, rng, dev) -> tuple:
+    """K2 through ``parity_bits`` at (K, M, R, N) = ``shape``: the variant
+    that ``k2_variant`` names must be the only one launched, once, and equal
+    to the plain version. Returns (inputs, outputs, error)."""
+    k, m, r, n = shape
+    if ops.parity_kernel.k2_variant(n) != want_variant:
+        raise AssertionError(f"N={n} does not take K2's {want_variant} variant")
+    full = kernel_inputs(rng, dev, k, m, r, n)["parity_bits"]
     ops.reset_launch_counts()
     got = ops.parity_bits(*full)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = {name: ops.launch_counts()[name] for name in K2_ENTRIES}
     want = ops.parity_bits_plain(*full)
     torch.cuda.synchronize()
-    if counts["parity_bits"] or counts["parity_bits_global"] != 1:
-        raise AssertionError(f"N={n2} did not take K2's global variant alone: {counts}")
+    if counts != {name: int(name == K2_ENTRIES_BY_VARIANT[want_variant]) for name in K2_ENTRIES}:
+        raise AssertionError(f"N={n} did not take K2's {want_variant} variant alone: {counts}")
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"parity_bits_global differs from its plain version at {K2G_SHAPE}")
+        raise AssertionError(f"parity_bits differs from its plain version at {shape}")
     err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
               for g, w in zip(got, want))
-    ms = device_ms(lambda: ops.parity_bits(*full), 20)
-    call_ms = cuda_ms(lambda: ops.parity_bits(*full), 20)
-    plain_ms = cuda_ms(lambda: ops.parity_bits_plain(*full), 2)
+    return full, got, err
+
+
+def check_parity_variants(dev, rng) -> dict:
+    """Phase 3 for K2's wide and global-memory variants: each equal to the
+    plain version at K = 1..6 on ragged shapes (called directly), with
+    distinct and with repeated toggled legs; through ``parity_bits`` at
+    K=2, M=7000, R=64, N=36,864, where only the wide variant may launch,
+    timed there in turns against the global variant (its only path before),
+    and at N = 60,000, past the wide variant's limit, where only the global
+    variant may launch: its row of the ``kernels`` line (no SSE model
+    reaches that N: its int32 leg key needs N < 32,768)."""
+    ragged = ((37, 5, 9), (301, 48, 40), (130, 33, 37), (7, 1, 6), (1000, 64, 70))
+    parity_equal(ops.parity_bits_wide, "parity_bits_wide", ragged, rng, dev)
+    parity_equal(ops.parity_bits_global, "parity_bits_global", ragged, rng, dev)
+    full, got, err = parity_through_dispatch(K2G_SHAPE, "wide", rng, dev)
+    times = in_turns({"parity_bits_global": lambda: ops.parity_bits_global(*full),
+                      "parity_bits_wide": lambda: ops.parity_bits_wide(*full)}, 20)
+    b = bound(nbytes(*full, *got))
+    print(f"K2 at (K, M, R, N) = {K2G_SHAPE} through parity_bits: the wide variant alone, "
+          f"equal to plain (max_abs_err {err}); device ms in turns {json.dumps(times)} "
+          f"(the global variant's recorded 0.5891-0.5917), bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}, {nbytes(*full, *got) / 1e6:.2f} MB)", flush=True)
+
+    full, got, err = parity_through_dispatch(K2_PAST_SHAPE, "global", rng, dev)
+    launched = ops.parity_bits_global.launches
+    ms = device_ms(lambda: ops.parity_bits(*full), 10)
+    call_ms = cuda_ms(lambda: ops.parity_bits(*full), 10)
+    plain_ms = cuda_ms(lambda: ops.parity_bits_plain(*full), 1)
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound(nbytes(*full, *got)), "library_ms": None}
-    print(f"parity_bits_global: equal to plain at K = 1..6 on {list(ragged)} and at (K, M, R, "
-          f"N) = {K2G_SHAPE} through parity_bits (launches {counts['parity_bits_global']}, "
-          f"max_abs_err {err}); kernels {ms:.4f} ms on the device ({call_ms:.4f} ms a call, "
-          f"CUDA events), plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_by']}, {nbytes(*full, *got) / 1e6:.2f} MB)", flush=True)
+           **bound(nbytes(*full, *got)), "library_ms": None, "dispatch_launches": launched}
+    print(f"K2 at (K, M, R, N) = {K2_PAST_SHAPE} through parity_bits: the global variant "
+          f"alone (launches 1), equal to plain (max_abs_err {err}); kernels {ms:.4f} ms on the "
+          f"device ({call_ms:.4f} ms a call, CUDA events), plain {plain_ms:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}, "
+          f"{nbytes(*full, *got) / 1e6:.2f} MB)", flush=True)
     return res
 
 
@@ -2142,16 +2317,16 @@ def check_checkpoints(tc, g: QmcIsingGraph) -> None:
 
 
 def run_large_n(dev) -> dict:
-    """Phase 9f: an SSE model past K2's shared-memory limit: the L x L
+    """Phase 9f: an SSE model past K2's shared variant's limit: the L x L
     benchmark lattice at L = ``BIG_L`` (N = 30,976), beta = ``BIG_BETA``,
     R = ``BIG_R``, ``BIG_STEPS`` timesteps with ``verify()`` after each;
     N * M stays below 2^30 (the leg sort key). Returns the launches, of
-    which K2's must all be the global variant's, and the kernel's row from
+    which K2's must all be the wide variant's, and the kernel's row from
     :func:`check_recorded_parity`."""
     edges = lattice.bench_two_d_periodic(BIG_L)
     n = BIG_L * BIG_L
-    if ops.parity_kernel.k2_variant(n) != "global":
-        raise AssertionError(f"N={n} does not take K2's global variant")
+    if ops.parity_kernel.k2_variant(n) != "wide":
+        raise AssertionError(f"N={n} does not take K2's wide variant")
     t0 = time.perf_counter()
     g = QmcIsingGraph(edges, 1.0, replicas=BIG_R, seed=17, device=dev)
     ops.reset_launch_counts()
@@ -2168,17 +2343,18 @@ def run_large_n(dev) -> dict:
           f"{BIG_STEPS} timesteps in {secs:.1f} s, verify() after each, cutoff {g.cutoff} "
           f"(N*M = {n * g.cutoff}, limit {2**30}), mean n "
           f"{float(g.get_n().float().mean()):.1f}; launches {counts}", flush=True)
-    if counts["parity_bits"] or counts["parity_bits_global"] <= 0:
-        raise AssertionError(f"9f: K2 did not run through its global variant alone: {counts}")
+    if counts["parity_bits"] or counts["parity_bits_global"] or counts["parity_bits_wide"] <= 0:
+        raise AssertionError(f"9f: K2 did not run through its wide variant alone: {counts}")
     return counts, check_recorded_parity(g)
 
 
 def check_recorded_parity(g: QmcIsingGraph) -> dict:
-    """Phase 9f: K2's global variant against its plain version on the
-    arguments of one real call, recorded from one more sweep of the grown
-    9f graph, and timed there (device ms by ``torch.profiler``, CUDA events
-    for a call, the plain version, the byte bound): the numbers of its row
-    in the ``kernels`` line."""
+    """Phase 9f: K2 through ``parity_bits`` on the arguments of one real
+    call, recorded from one more sweep of the grown 9f graph: the wide
+    variant alone, equal to its plain version, and timed there (device ms
+    by ``torch.profiler`` in turns with the global variant, this model's
+    only path before; CUDA events for a call, the plain version, the byte
+    bound): the numbers of its row in the ``kernels`` line."""
     recorded = []
     saved = sse_diagonal.parity_bits
 
@@ -2195,24 +2371,61 @@ def check_recorded_parity(g: QmcIsingGraph) -> dict:
         sse_diagonal.parity_bits = saved
     if not recorded:
         raise AssertionError("9f: no call of parity_bits recorded")
-    got, want = ops.parity_bits_global(*recorded), ops.parity_bits_plain(*recorded)
+    ops.reset_launch_counts()
+    got = ops.parity_bits(*recorded)
     torch.cuda.synchronize()
+    counts = {name: ops.launch_counts()[name] for name in K2_ENTRIES}
+    want = ops.parity_bits_plain(*recorded)
+    torch.cuda.synchronize()
+    if counts != {"parity_bits": 0, "parity_bits_wide": 1, "parity_bits_global": 0}:
+        raise AssertionError(f"9f: the recorded call did not take K2's wide variant alone: "
+                             f"{counts}")
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError("9f: parity_bits_global differs from its plain version on the "
+        raise AssertionError("9f: parity_bits_wide differs from its plain version on the "
                              "recorded call")
     err = max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
               for a, b in zip(got, want))
-    ms = device_ms(lambda: ops.parity_bits_global(*recorded), 20)
-    call_ms = cuda_ms(lambda: ops.parity_bits_global(*recorded), 20)
+    times = in_turns({"parity_bits_global": lambda: ops.parity_bits_global(*recorded),
+                      "parity_bits_wide": lambda: ops.parity_bits_wide(*recorded)}, 20)
+    ms = float(np.mean(times["parity_bits_wide"]))
+    call_ms = cuda_ms(lambda: ops.parity_bits_wide(*recorded), 20)
     plain_ms = cuda_ms(lambda: ops.parity_bits_plain(*recorded), 1)
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound(nbytes(*recorded, *got)), "library_ms": None}
-    print(f"parity_bits_global on the recorded 9f call {[tuple(a.shape) for a in recorded]}: "
-          f"equal to plain (max_abs_err {err}); kernels {ms:.4f} ms on the device "
-          f"({call_ms:.4f} ms a call, CUDA events), plain {plain_ms:.4f} ms, bound "
-          f"{res['bound_ms']:.4f} ms ({res['bound_by']}, "
-          f"{nbytes(*recorded, *got) / 1e6:.2f} MB)", flush=True)
+    split = device_split(lambda: ops.parity_bits_wide(*recorded), 20, K2_WIDE_PASSES,
+                         "the wide variant on the recorded 9f call")
+    by_segments = wide_segment_counts(recorded, got)
+    print(f"parity_bits on the recorded 9f call {[tuple(a.shape) for a in recorded]}: the "
+          f"wide variant alone, equal to plain (max_abs_err {err}); device ms in turns "
+          f"{json.dumps(times)} (the global variant's recorded row: 0.7556); the wide "
+          f"{ms:.4f} ms ({call_ms:.4f} ms a call, CUDA events; by pass {json.dumps(split)}), "
+          f"plain {plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+          f"{nbytes(*recorded, *got) / 1e6:.2f} MB); device ms by segments a replica group "
+          f"{json.dumps(by_segments)}", flush=True)
     return res
+
+
+def wide_segment_counts(recorded: list, want: tuple) -> dict:
+    """K2's wide variant on a recorded call at a quarter, a half, one and
+    two waves of one-warp CTAs (segments a replica group; one wave is what
+    ``wide_segment_length`` picks): device ms of each, whose outputs must
+    equal ``want``. ``wide_segment_length`` is swapped for the calls and
+    restored."""
+    rule = ops.parity_kernel.wide_segment_length
+    n_sms = _build.sm_count(recorded[0].device)
+    groups = -(-recorded[1].shape[2] // 32)
+    out = {}
+    try:
+        for nseg in sorted({max(1, f * n_sms // (4 * groups)) for f in (1, 2, 4, 8)}):
+            ops.parity_kernel.wide_segment_length = (
+                lambda M, R, n, k=nseg: 4 * -(-M // (4 * k)))
+            got = ops.parity_bits_wide(*recorded)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"9f: parity_bits_wide at {nseg} segments differs")
+            out[nseg] = device_ms(lambda: ops.parity_bits_wide(*recorded), 10)
+    finally:
+        ops.parity_kernel.wide_segment_length = rule
+    return out
 
 
 # -- Phase 10: parallel tempering sharded over ranks ------------------------------------
@@ -2496,6 +2709,7 @@ def main() -> None:
 
     phase("3. kernels against their plain versions")
     kernel_results, carry_bounds = check_kernels(dev)
+    k2_global_launches = kernel_results["parity_bits_global"].pop("dispatch_launches")
 
     phase("4. physics: 8-site chain against ED")
     check_physics(dev)
@@ -2540,16 +2754,19 @@ def main() -> None:
         raise AssertionError(f"K1 was not launched by the classical path: {counts}")
     launches["checkerboard_multi_sweep"] = counts["checkerboard_multi_sweep"]
 
-    phase("6b. classical path past shared memory: 2048^2 lattice")
+    phase(f"6b. classical path past shared memory: {L_HUGE}^2 and {L_PAST}^2 lattices")
     ops.reset_launch_counts()
     run_classical_global(dev)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    print(f"kernel launches in the 2048^2 classical path: {counts}", flush=True)
-    if counts["checkerboard_multi_sweep_global"] <= 0 or counts["checkerboard_multi_sweep"]:
-        raise AssertionError(f"the 2048^2 lattice did not run through K1's global variant "
-                             f"alone: {counts}")
-    launches["checkerboard_multi_sweep_global"] = counts["checkerboard_multi_sweep_global"]
+    print(f"kernel launches in the {L_HUGE}^2 and {L_PAST}^2 classical paths: {counts}",
+          flush=True)
+    if (counts["checkerboard_multi_sweep_bands"] <= 0 or counts["checkerboard_multi_sweep"]
+            or counts["checkerboard_multi_sweep_global"] != 1):
+        raise AssertionError(f"the {L_HUGE}^2 lattice did not run through K1's banded variant "
+                             f"and the {L_PAST}^2 one call through its global variant: {counts}")
+    for name in ("checkerboard_multi_sweep_bands", "checkerboard_multi_sweep_global"):
+        launches[name] = counts[name]
 
     phase("7. RVB path: two_d_rvb_16 (16x16 benchmark lattice, beta=10, R=16, U=128)")
     _, counts = run_rvb(dev)
@@ -2575,9 +2792,12 @@ def main() -> None:
     check_tempering_physics(dev)
     phase("9e. checkpoints: save, run, load, run again")
     check_checkpoints(tc_a, g_met)
-    phase(f"9f. K2's global variant on a model: {BIG_L}x{BIG_L} benchmark lattice")
-    counts, kernel_results["parity_bits_global"] = run_large_n(dev)
-    launches["parity_bits_global"] = counts["parity_bits_global"]
+    phase(f"9f. K2's wide variant on a model: {BIG_L}x{BIG_L} benchmark lattice")
+    counts, kernel_results["parity_bits_wide"] = run_large_n(dev)
+    launches["parity_bits_wide"] = counts["parity_bits_wide"]
+    # No SSE model reaches K2's global variant (N > 53,472; the int32 leg key
+    # needs N < 32,768): its launches are phase 3's, through parity_bits.
+    launches["parity_bits_global"] = k2_global_launches
 
     phase(f"10a. sharded tempering: 9a's ladder over {SH_WORLD} gloo ranks on one card")
     run_sharded_ladder(SH_WORLD, "gloo", "10a", card, out_a["ms_per_sweep_swap"])

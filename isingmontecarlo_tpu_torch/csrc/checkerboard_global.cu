@@ -1,14 +1,15 @@
 // K1, global-memory variant: nsweeps checkerboard Metropolis sweeps of a
-// periodic L x L field too large for any thread-block cluster's shared
-// memory (ops/checkerboard.py::k1_variant picks it: on an H100 every L
-// above 1360, and from 682 up those that no c in {2, 4, 8} divides with a
-// band that fits).
+// periodic L x L field too large for the card's resident shared memory
+// (ops/checkerboard.py::k1_variant picks it: on an H100 every even L above
+// 5,404, where one replica's bands would need more CTAs than the SMs hold
+// at once; checkerboard_bands.cu takes the fields from 682 up to there that
+// no thread-block cluster holds).
 //
 // Replaces, for those fields, the Pallas kernel isingmontecarlo_tpu/ops/
-// checkerboard.py::checkerboard_multi_sweep, as checkerboard.cu does for the
-// rest. The two compact colour planes of every replica (L * L int8 bytes)
-// live in a scratch buffer in global memory, where at the sizes that take
-// this variant a few replicas fit the 50 MB L2. A kernel boundary separates
+// checkerboard.py::checkerboard_multi_sweep, as checkerboard.cu and
+// checkerboard_bands.cu do for the rest. The two compact colour planes of
+// every replica (L * L int8 bytes) live in a scratch buffer in global
+// memory. A kernel boundary separates
 // the colour half-steps: planes_kernel splits the field into the planes,
 // half_step_kernel updates one colour of every replica (a thread per 4-site
 // group; it reads only the other plane, which no thread writes during the

@@ -27,6 +27,9 @@
 //    memory once; each warp starts its carry from its segment's prefix and
 //    walks the segment.
 //
+// The wide variant at the end of this file takes the N whose two vectors
+// no CTA holds (past 29,056 on an H100): see its own note.
+//
 // XOR is associative, so the bits equal those of a single serial scan. The
 // wrapper picks nseg so that about 16 warps run on each SM (the earlier
 // design had one-warp CTAs, ~4 warps an SM, an XOR over every earlier
@@ -42,10 +45,14 @@
 // slots every lane stores 4 bytes (slot lane / 8, replicas 4 * (lane % 8)
 // .. + 3) of pb and of sb.
 //
-// A slot must not name one variable on two legs (no model bond does).
+// A slot's toggled legs act as a set: two legs on one variable flip it once,
+// as the plain version's scatter and the JAX package's XLA path (.max) do.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "parity_legs.cuh"
 
 namespace {
 
@@ -77,8 +84,10 @@ __device__ __forceinline__ void store4(uint8_t* out, int64_t at, int r0, int R,
 }
 
 // XOR one slot's KT leg toggles into the carry: every word loaded before
-// any store, so the slot costs one shared-memory latency; legs that toggle
-// one word store the same combined word.
+// any store, so the slot costs one shared-memory latency. A word's toggle
+// mask is the OR of the bits of the slot's legs in it, so legs that toggle
+// one word store the same combined word, and two legs on one variable flip
+// it once.
 template <int KT>
 __device__ __forceinline__ void toggle_slot(uint32_t* par, const int* v, const bool* tg, int N,
                                             int lane) {
@@ -94,12 +103,12 @@ __device__ __forceinline__ void toggle_slot(uint32_t* par, const int* v, const b
   }
 #pragma unroll
   for (int k = 0; k < KT; ++k) {
-    uint32_t nw = tw[k] ^ tm[k];
+    uint32_t m = tm[k];
 #pragma unroll
     for (int k2 = 0; k2 < KT; ++k2) {
-      if (k2 != k && at[k2] == at[k]) nw ^= tm[k2];
+      if (k2 != k && at[k2] == at[k]) m |= tm[k2];
     }
-    if (tm[k]) par[at[k]] = nw;
+    if (tm[k]) par[at[k]] = tw[k] ^ m;
   }
 }
 
@@ -124,9 +133,9 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp, 2) parity_segments_kernel(c
   if constexpr (KT == 0) {
     for (int p = p_begin; p < p_end; ++p) {
       for (int k = 0; k < K && active; ++k) {
-        const int64_t i = k * plane + (int64_t)p * R + r;
-        const int vv = v_idx[i];
-        if (tog[i] && (unsigned)vv < (unsigned)N) par[(vv >> 5) * kWarp + lane] ^= 1u << (vv & 31);
+        int w = 0;
+        const uint32_t m = leg_toggle(v_idx, tog, k, plane, (int64_t)p * R + r, N, &w);
+        if (m) par[w * kWarp + lane] ^= m;
       }
     }
   } else {
@@ -233,9 +242,9 @@ __global__ void parity_bits_kernel(const int32_t* __restrict__ v_idx,
         }
       }
       for (int k = 0; k < K && active; ++k) {
-        const int64_t i = k * plane + at;
-        const int vv = v_idx[i];
-        if (tog[i] && (unsigned)vv < (unsigned)N) par[(vv >> 5) * kWarp + lane] ^= 1u << (vv & 31);
+        int w = 0;
+        const uint32_t m = leg_toggle(v_idx, tog, k, plane, at, N, &w);
+        if (m) par[w * kWarp + lane] ^= m;
       }
     }
   } else {
@@ -293,6 +302,308 @@ __global__ void parity_bits_kernel(const int32_t* __restrict__ v_idx,
   }
 }
 
+// ---- The wide variant (N past what two vectors a CTA allow) -------------
+//
+// A CTA holds one warp's carry (4 * N bytes) and no packed state, so one
+// CTA runs an SM, and nothing hides the latency of the SM's only warp: on
+// an H100 such a warp gets about one memory request served each ~40 ns.
+// So the wide variant keeps memory requests off the walk's chain:
+//
+// 1. parity_toggles_wide: a thread per (slot, replica), fully parallel,
+//    XORs its slot's toggles (a set: a variable that an earlier leg names
+//    is skipped) into its segment's row of the zeroed scratch with
+//    atomicXor (commutative, so the rows are exact in any order);
+// 2. parity_prefix_kernel, as for the shared variant;
+// 3. parity_bits_wide_kernel: the walk of one segment by one warp, pb only.
+//    Its carry and its tiles of slots (the current op's legs, their
+//    toggles, the proposal legs) arrive by TMA into shared memory, counted
+//    down on mbarriers: the carry in boxes of up to 256 rows of 32
+//    replicas, the tiles a box of T slots a leg and array each, through a
+//    ring of stages filled ahead of the walk. A request costs a lone warp
+//    ~40 ns whatever its size (row-sized copies held the walk at ~280 ns a
+//    slot), so the boxes are as large as the layout allows. Where rows are
+//    not 16-byte multiples (R % 16 != 0) the lanes copy their own elements
+//    instead, unpipelined.
+// 4. parity_state_bits: sb, a gather of the packed p=0 state (scratch row
+//    nseg, 4 * N bytes a replica group, so an SM's L1 holds a 32-replica
+//    model's) at the proposal legs, fully parallel: it does not depend on
+//    the scan.
+//
+// Bound on the card, measured: the walk's instruction issue. Its loop is
+// ~90 SASS instructions a slot at K=2, and the SM's one warp issues at most
+// one a clock, so a slot takes ~50-100 ns; M * ceil(R / 32) slot walks over
+// the SMs, plus the prefix pass's scratch (an N-bit vector a segment and
+// replica, read and written once), set the time.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// One arrival that also raises the bytes the barrier's phase waits for.
+__device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box of a 2-D tensor map, at (column c0, row c1), into shared
+// memory, counted down on bar as it lands (rows and columns past the tensor
+// read as zeros).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The wide walk's tensor maps: v_idx, vq (int32) and tog (uint8) as [K * M,
+// R] in boxes of [T, 32], and the scratch as [(nseg + 1) * W, R] int32 in
+// boxes of [min(W, 256), 32]; a kernel parameter (__grid_constant__).
+struct WideMaps {
+  CUtensorMap v, q, t, carry;
+  int carry_rows;  // rows of a carry box
+};
+
+__global__ void parity_toggles_wide(const int32_t* __restrict__ v_idx,
+                                    const uint8_t* __restrict__ tog, uint32_t* __restrict__ seg,
+                                    int K, int M, int R, int N, int seg_len, int nseg) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t plane = (int64_t)M * R;
+  if (i >= plane) return;
+  const int p = (int)(i / R), r = (int)(i - (int64_t)p * R);
+  const int s = p / seg_len;
+  if (s >= nseg - 1) return;  // the last segment's toggles are never needed
+  const int64_t row = (int64_t)((N + 31) >> 5) * R;
+  for (int k = 0; k < K; ++k) {
+    int w = 0;
+    const uint32_t m = leg_toggle(v_idx, tog, k, plane, i, N, &w);
+    if (m) atomicXor(seg + s * row + (int64_t)w * R + r, m);
+  }
+}
+
+// packed: the p=0 state, word w of replica r at packed[w * R + r]. kQuad
+// (R % 4 == 0, 16-byte aligned vq): a thread takes 4 replicas of a row,
+// one 16-byte load of vq and one 4-byte store of sb; else one element.
+__device__ __forceinline__ uint32_t state_bit(const uint32_t* __restrict__ packed, int q, int r,
+                                              int R, int N) {
+  return (unsigned)q < (unsigned)N ? (__ldg(packed + (int64_t)(q >> 5) * R + r) >> (q & 31)) & 1u
+                                   : 0u;
+}
+
+template <bool kQuad>
+__global__ void parity_state_bits(const uint32_t* __restrict__ packed,
+                                  const int32_t* __restrict__ vq, uint8_t* __restrict__ sb,
+                                  int64_t total, int R, int N) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * (kQuad ? 4 : 1);
+  if (i >= total) return;
+  const int r = (int)(i % R);
+  if constexpr (kQuad) {
+    const int4 q = *reinterpret_cast<const int4*>(vq + i);
+    *reinterpret_cast<uint32_t*>(sb + i) =
+        state_bit(packed, q.x, r, R, N) | state_bit(packed, q.y, r + 1, R, N) << 8 |
+        state_bit(packed, q.z, r + 2, R, N) << 16 | state_bit(packed, q.w, r + 3, R, N) << 24;
+  } else {
+    sb[i] = state_bit(packed, vq[i], r, R, N);
+  }
+}
+
+// A ring stage: KT * T rows of 32 replicas each of v (the current op's leg
+// variables), q (the proposal's) and t (the toggles), row k * T + j for leg
+// k of slot j of the tile.
+template <int KT>
+struct WideStage {
+  static constexpr int kRows = KT * kTileSlots<KT>;
+  int32_t v[kRows][kWarp];
+  int32_t q[kRows][kWarp];
+  uint8_t t[kRows][kWarp];
+};
+
+// Fill stage st with the tile at p0 (n of its slots exist): with kTma, one
+// box a leg and array (lane 0 arms the stage's barrier and issues them; a
+// box past a leg's last slot or past R reads rows or columns the walk
+// ignores); else each lane's own elements.
+template <int KT, bool kTma>
+__device__ __forceinline__ void fill_stage(WideStage<KT>* st, uint64_t* bar,
+                                           const WideMaps* maps,
+                                           const int32_t* __restrict__ v_idx,
+                                           const uint8_t* __restrict__ tog,
+                                           const int32_t* __restrict__ vq, int M, int R, int g0,
+                                           int gw, int p0, int n, int lane) {
+  constexpr int T = kTileSlots<KT>;
+  if (n <= 0) return;
+  if constexpr (kTma) {
+    if (lane == 0) {
+      bar_arrive_expect(bar, (uint32_t)sizeof(WideStage<KT>));
+      for (int k = 0; k < KT; ++k) {
+        tma_load_2d(st->v[k * T], &maps->v, g0, k * M + p0, bar);
+        tma_load_2d(st->q[k * T], &maps->q, g0, k * M + p0, bar);
+        tma_load_2d(st->t[k * T], &maps->t, g0, k * M + p0, bar);
+      }
+    }
+  } else {
+    const int64_t plane = (int64_t)M * R;
+    if (lane < gw) {
+      for (int e = 0; e < KT * n; ++e) {
+        const int k = e / n, j = e - k * n;
+        const int64_t at = k * plane + (int64_t)(p0 + j) * R + g0 + lane;
+        st->v[k * T + j][lane] = v_idx[at];
+        st->q[k * T + j][lane] = vq[at];
+        st->t[k * T + j][lane] = tog[at];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The walk of segment blockIdx.y of replica group blockIdx.x by one warp,
+// from its prefix row: pb only. KT = 0 (K > 4) reads its legs from global
+// memory, unpipelined.
+template <int KT, bool kWords, bool kTma>
+__global__ void __launch_bounds__(kWarp, 1)
+    parity_bits_wide_kernel(const int32_t* __restrict__ v_idx, const uint8_t* __restrict__ tog,
+                            const int32_t* __restrict__ vq, const uint32_t* __restrict__ seg,
+                            uint8_t* __restrict__ pb, int K, int M, int R, int N, int seg_len,
+                            int nseg, int stages, const __grid_constant__ WideMaps maps) {
+  extern __shared__ __align__(128) uint32_t par[];  // [W][32]: the carry; then the ring
+  constexpr int T = kTileSlots<KT>;
+  const int W = (N + 31) >> 5;
+  const int lane = threadIdx.x, s = blockIdx.y;
+  const int g0 = blockIdx.x * kWarp, r = g0 + lane, gw = min(kWarp, R - g0);
+  const bool active = r < R;
+  const int64_t row = (int64_t)W * R, plane = (int64_t)M * R;
+  const int p_begin = s * seg_len, p_end = min(M, p_begin + seg_len);
+  const uint32_t* __restrict__ prefix = seg + s * row + g0;
+
+  if constexpr (KT == 0) {
+    for (int w = 0; w < W; ++w) par[w * kWarp + lane] = active ? prefix[(int64_t)w * R + lane] : 0u;
+    for (int p = p_begin; p < p_end; ++p) {
+      const int64_t at = (int64_t)p * R + r;
+      for (int k = 0; k < K; ++k) {
+        const int qq = active ? vq[k * plane + at] : -1;
+        const bool ok = (unsigned)qq < (unsigned)N;
+        const uint32_t pw = par[ok ? (qq >> 5) * kWarp + lane : lane];
+        const unsigned bp = __ballot_sync(kAll, ok && (pw >> (qq & 31)) & 1u);
+        if (lane < 8) {  // one slot: 8 lanes of 4 replicas
+          store4<kWords>(pb, k * plane + (int64_t)p * R, g0 + 4 * lane, R,
+                         (bp >> (4 * lane)) & 0xFu);
+        }
+      }
+      for (int k = 0; k < K && active; ++k) {
+        int w = 0;
+        const uint32_t m = leg_toggle(v_idx, tog, k, plane, at, N, &w);
+        if (m) par[w * kWarp + lane] ^= m;
+      }
+    }
+  } else {
+    WideStage<KT>* ring = reinterpret_cast<WideStage<KT>*>(par + W * kWarp);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(ring + stages);  // [stages] tiles, then the carry's
+    uint64_t* carry_bar = bars + stages;
+    const int ntiles = (p_end - p_begin + T - 1) / T;
+    if constexpr (kTma) {
+      if (lane == 0) {
+        for (int i = 0; i <= stages; ++i) bar_init(bars + i, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        // The carry in boxes of carry_rows rows; the last box ends at row W
+        // (it may overlap the one before: the same words land twice).
+        const int ch = maps.carry_rows, nbox = (W + ch - 1) / ch;
+        bar_arrive_expect(carry_bar, (uint32_t)(nbox * ch * kWarp * 4));
+        for (int b = 0; b < nbox; ++b) {
+          const int w0 = min(b * ch, W - ch);
+          tma_load_2d(par + w0 * kWarp, &maps.carry, g0, s * W + w0, carry_bar);
+        }
+      }
+      __syncwarp();
+      for (int t = 0; t < stages && t < ntiles; ++t) {
+        fill_stage<KT, true>(ring + t, bars + t, &maps, v_idx, tog, vq, M, R, g0, gw,
+                             p_begin + t * T, min(T, p_end - p_begin - t * T), lane);
+      }
+      bar_wait(carry_bar, 0);
+    } else {
+      for (int w = 0; w < W; ++w) par[w * kWarp + lane] = active ? prefix[(int64_t)w * R + lane] : 0u;
+    }
+    // The lane's share of a 4-slot store: slot lane / 8, replicas 4 * (lane % 8).
+    const int jj = lane >> 3, r0 = g0 + 4 * (lane & 7), sh = 4 * (lane & 7);
+    for (int t = 0; t < ntiles; ++t) {
+      const int p0 = p_begin + t * T, n = min(T, p_end - p0);
+      WideStage<KT>* st = ring + (kTma ? t % stages : 0);
+      if constexpr (kTma) {
+        bar_wait(bars + t % stages, (uint32_t)((t / stages) & 1));
+      } else {
+        fill_stage<KT, false>(st, nullptr, nullptr, v_idx, tog, vq, M, R, g0, gw, p0, n, lane);
+      }
+      // The tile into registers first: the compiler cannot move a stage's
+      // loads above the carry's stores (both are shared memory), so loads
+      // in the walk would lengthen each slot's chain.
+      int qt[T][KT], vt[T][KT];
+      uint32_t tgm = 0u;
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        const bool in = active && j < n;
+#pragma unroll
+        for (int k = 0; k < KT; ++k) {
+          qt[j][k] = in ? st->q[k * T + j][lane] : -1;
+          vt[j][k] = in ? st->v[k * T + j][lane] : -1;
+          tgm |= (uint32_t)(in && st->t[k * T + j][lane] != 0) << (j * KT + k);
+        }
+      }
+      __syncwarp();  // every lane has read the stage before it is filled again
+      if constexpr (kTma) {
+        const int tn = t + stages;
+        if (tn < ntiles) {
+          fill_stage<KT, true>(st, bars + t % stages, &maps, v_idx, tog, vq, M, R, g0, gw,
+                               p_begin + tn * T, min(T, p_end - p_begin - tn * T), lane);
+        }
+      }
+#pragma unroll
+      for (int j4 = 0; j4 < T; j4 += 4) {
+        unsigned bp[4][KT];
+#pragma unroll
+        for (int jq = 0; jq < 4; ++jq) {
+          const int j = j4 + jq;
+          bool tg[KT];
+          uint32_t pw[KT];
+          const int* qk = qt[j];
+#pragma unroll
+          for (int k = 0; k < KT; ++k) {
+            tg[k] = (tgm >> (j * KT + k)) & 1u;
+            // The fetches read the carry before slot p, so before its toggles.
+            pw[k] = par[(unsigned)qk[k] < (unsigned)N ? (qk[k] >> 5) * kWarp + lane : lane];
+          }
+          toggle_slot<KT>(par, vt[j], tg, N, lane);
+#pragma unroll
+          for (int k = 0; k < KT; ++k) {
+            bp[jq][k] = __ballot_sync(
+                kAll, (unsigned)qk[k] < (unsigned)N && (pw[k] >> (qk[k] & 31)) & 1u);
+          }
+        }
+        if (j4 + jj < n) {
+#pragma unroll
+          for (int k = 0; k < KT; ++k) {
+            const unsigned mp = jj == 0 ? bp[0][k] : jj == 1 ? bp[1][k] : jj == 2 ? bp[2][k] : bp[3][k];
+            store4<kWords>(pb, k * plane + (int64_t)(p0 + j4 + jj) * R, r0, R, (mp >> sh) & 0xFu);
+          }
+        }
+      }
+    }
+  }
+}
+
 cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -333,6 +644,115 @@ int launch(const void* state, const void* v_idx, const void* tog, const void* vq
   return (int)cudaGetLastError();
 }
 
+// The wide variant's bytes of shared memory at N with `stages` ring stages.
+template <int KT>
+size_t wide_smem(int N, int stages) {
+  const size_t carry = (size_t)((N + 31) / 32) * kWarp * sizeof(uint32_t);
+  if constexpr (KT == 0) {
+    return carry;
+  } else {
+    return carry + stages * sizeof(WideStage<KT>) + (stages + 1) * sizeof(uint64_t);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no libcuda), or null where the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The descriptor of a [rows, R] tensor of elem-byte elements in boxes of
+// [box_rows, 32].
+bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
+               int64_t rows, int R, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)R, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)R * elem};
+  const cuuint32_t box[2] = {kWarp, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+  return encode_tiled()(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int KT>
+int launch_wide(const void* state, const void* v_idx, const void* tog, const void* vq,
+                void* seg, void* pb, void* sb, int K, int M, int R, int N, int seg_len,
+                cudaStream_t stream) {
+  constexpr int kMaxStages = 8;
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  int stages = kMaxStages;
+  while (stages > 2 && wide_smem<KT>(N, stages) > (size_t)max_smem) --stages;
+  const size_t smem = wide_smem<KT>(N, stages);
+  // The wrapper refuses an N whose carry and two stages do not fit first.
+  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  const int W = (N + 31) / 32;
+  const int nseg = (M + seg_len - 1) / seg_len;
+  const int rgroups = (R + kWarp - 1) / kWarp;
+  const auto aligned16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  // TMA takes rows of 16-byte multiples at 16-byte aligned addresses.
+  const bool tma = KT > 0 && R % 16 == 0 && aligned16(v_idx) && aligned16(tog) &&
+                   aligned16(vq) && aligned16(seg) && encode_tiled() != nullptr;
+  WideMaps maps{};
+  if (tma) {
+    constexpr int T = kTileSlots<KT>;
+    maps.carry_rows = W < 256 ? W : 256;
+    if (!encode_2d(&maps.v, v_idx, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, (int64_t)K * M, R, T) ||
+        !encode_2d(&maps.q, vq, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, (int64_t)K * M, R, T) ||
+        !encode_2d(&maps.t, tog, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (int64_t)K * M, R, T) ||
+        !encode_2d(&maps.carry, seg, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, (int64_t)(nseg + 1) * W,
+                   R, maps.carry_rows)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  const bool words = R % 4 == 0;
+  const auto walk = tma ? (words ? parity_bits_wide_kernel<KT, true, true>
+                                 : parity_bits_wide_kernel<KT, false, true>)
+                        : (words ? parity_bits_wide_kernel<KT, true, false>
+                                 : parity_bits_wide_kernel<KT, false, false>);
+  e = allow_smem((const void*)walk, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t slots = (int64_t)M * R, total = (int64_t)K * M * R;
+  if (nseg > 1) {
+    parity_toggles_wide<<<(unsigned)((slots + 255) / 256), 256, 0, stream>>>(
+        (const int32_t*)v_idx, (const uint8_t*)tog, (uint32_t*)seg, K, M, R, N, seg_len, nseg);
+  }
+  parity_prefix_kernel<<<(unsigned)(((int64_t)W * R + 255) / 256), 256, 0, stream>>>(
+      (const uint8_t*)state, (uint32_t*)seg, R, N, nseg);
+  walk<<<dim3(rgroups, nseg), kWarp, smem, stream>>>(
+      (const int32_t*)v_idx, (const uint8_t*)tog, (const int32_t*)vq, (const uint32_t*)seg,
+      (uint8_t*)pb, K, M, R, N, seg_len, nseg, stages, maps);
+  const uint32_t* packed = (const uint32_t*)seg + (int64_t)nseg * W * R;
+  if (R % 4 == 0 && aligned16(vq) && (uintptr_t)sb % 4 == 0) {
+    parity_state_bits<true><<<(unsigned)((total / 4 + 255) / 256), 256, 0, stream>>>(
+        packed, (const int32_t*)vq, (uint8_t*)sb, total, R, N);
+  } else {
+    parity_state_bits<false><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        packed, (const int32_t*)vq, (uint8_t*)sb, total, R, N);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // seg: scratch of (ceil(M / seg_len) + 1) * ceil(N / 32) * R words; seg_len
@@ -350,5 +770,23 @@ extern "C" int ising_parity_bits(const void* state, const void* v_idx,
     case 3: return launch<3>(state, v_idx, tog, vq, seg, pb, sb, K, M, R, N, seg_len, s);
     case 4: return launch<4>(state, v_idx, tog, vq, seg, pb, sb, K, M, R, N, seg_len, s);
     default: return launch<0>(state, v_idx, tog, vq, seg, pb, sb, K, M, R, N, seg_len, s);
+  }
+}
+
+// The wide variant (one warp's carry a CTA and a ring of tiles): the
+// arguments of ising_parity_bits, with seg's rows 0 .. nseg - 2 zeroed.
+extern "C" int ising_parity_bits_wide(const void* state, const void* v_idx,
+                                      const void* tog, const void* vq, void* seg,
+                                      void* pb, void* sb, int K, int M, int R, int N,
+                                      int seg_len, void* stream) {
+  if (R == 0 || M == 0) return (int)cudaGetLastError();
+  if (seg_len <= 0 || seg_len % 4 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (K) {
+    case 1: return launch_wide<1>(state, v_idx, tog, vq, seg, pb, sb, K, M, R, N, seg_len, s);
+    case 2: return launch_wide<2>(state, v_idx, tog, vq, seg, pb, sb, K, M, R, N, seg_len, s);
+    case 3: return launch_wide<3>(state, v_idx, tog, vq, seg, pb, sb, K, M, R, N, seg_len, s);
+    case 4: return launch_wide<4>(state, v_idx, tog, vq, seg, pb, sb, K, M, R, N, seg_len, s);
+    default: return launch_wide<0>(state, v_idx, tog, vq, seg, pb, sb, K, M, R, N, seg_len, s);
   }
 }

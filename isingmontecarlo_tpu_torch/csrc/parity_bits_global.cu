@@ -4,8 +4,9 @@
 // Replaces the Pallas kernel
 // isingmontecarlo_tpu/ops/parity_kernel.py::parity_bits, as parity_bits.cu
 // does, for the N whose carry no CTA's shared memory holds (parity_bits.cu
-// keeps two N-bit vectors of 32 replicas in shared memory, so it takes N up
-// to 29,056 on an H100; the wrapper's k2_variant picks). Same three passes
+// keeps one or two N-bit vectors of 32 replicas in a CTA's shared memory, so
+// it takes N up to 53,472 on an H100; the wrapper's k2_variant picks). Same
+// three passes
 // over the same scratch, seg[s][w][r]:
 //
 // 1. parity_global_segments: a thread per (replica, segment) XORs its
@@ -25,12 +26,15 @@
 // once lie in different rows (its lanes' variables differ), one sector
 // each. The wrapper caps the scratch so that it stays in the 50 MB L2.
 // Bound on the card: the latency of those scattered read-modify-writes,
-// one chain a thread; a simple kernel, kept right first. As in
-// parity_bits.cu, a slot must not name one variable on two legs (no TFIM
-// bond does).
+// one chain a thread; a simple kernel, kept for the N past what
+// parity_bits.cu's wide walk holds (one warp's carry in a CTA's shared
+// memory: N up to 53,472 on an H100). As in parity_bits.cu, a slot's
+// toggled legs act as a set: two legs on one variable flip it once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "parity_legs.cuh"
 
 namespace {
 
@@ -47,9 +51,9 @@ __global__ void parity_global_segments(const int32_t* __restrict__ v_idx,
   const int p_end = min(M, (s + 1) * seg_len);
   for (int p = s * seg_len; p < p_end; ++p) {
     for (int k = 0; k < K; ++k) {
-      const int64_t i = k * plane + (int64_t)p * R + r;
-      const int v = v_idx[i];
-      if (tog[i] && (unsigned)v < (unsigned)N) par[(int64_t)(v >> 5) * R] ^= 1u << (v & 31);
+      int w = 0;
+      const uint32_t m = leg_toggle(v_idx, tog, k, plane, (int64_t)p * R + r, N, &w);
+      if (m) par[(int64_t)w * R] ^= m;
     }
   }
 }
@@ -101,9 +105,9 @@ __global__ void parity_global_walk(const int32_t* __restrict__ v_idx,
       sb[k * plane + at] = ok ? (stw[w] >> sh) & 1u : 0u;
     }
     for (int k = 0; k < K; ++k) {
-      const int64_t i = k * plane + at;
-      const int v = v_idx[i];
-      if (tog[i] && (unsigned)v < (unsigned)N) par[(int64_t)(v >> 5) * R] ^= 1u << (v & 31);
+      int w = 0;
+      const uint32_t m = leg_toggle(v_idx, tog, k, plane, at, N, &w);
+      if (m) par[(int64_t)w * R] ^= m;
     }
   }
 }

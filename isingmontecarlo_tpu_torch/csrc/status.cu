@@ -8,5 +8,8 @@ extern "C" const char* ising_error_string(int status) {
   if (status == kStatusClusterUnschedulable)
     return "the thread-block cluster cannot be scheduled on this device "
            "(cudaOccupancyMaxActiveClusters is 0)";
+  if (status == kStatusNotCoResident)
+    return "the cooperative grid exceeds the CTAs the device can hold at once "
+           "(occupancy x SMs); nothing was launched";
   return cudaGetErrorString((cudaError_t)status);
 }

@@ -5,3 +5,6 @@
 // K1: cudaOccupancyMaxActiveClusters found no SM group that can hold one
 // thread-block cluster of the requested size; nothing was launched.
 constexpr int kStatusClusterUnschedulable = 100001;
+// K1's banded variant: occupancy x SMs is below the CTAs of one cooperative
+// launch, whose CTAs wait on each other; nothing was launched.
+constexpr int kStatusNotCoResident = 100002;

@@ -39,6 +39,9 @@ _SIGNATURES = {
     # in, out, table, seed word 0, seed word 1, R, L, CTAs per replica,
     # nsweeps, stream
     "ising_checkerboard": (_P, _P, _P, _U, _U, _I, _I, _I, _I, _P),
+    # in, out, halo (scratch), flags (zeroed), table, seed word 0, seed word
+    # 1, L, nsweeps, first replica, replicas, bands a replica, stream
+    "ising_checkerboard_bands": (_P, _P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _I, _P),
     # in, out, planes (scratch), table, seed word 0, seed word 1, R, L,
     # nsweeps, stream
     "ising_checkerboard_global": (_P, _P, _P, _P, _U, _U, _I, _I, _I, _P),
@@ -50,7 +53,8 @@ _SIGNATURES = {
     "ising_pointer_jump": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # state, v_idx, tog, vq, seg (scratch), pb, sb, K, M, R, N, seg_len, stream
     "ising_parity_bits": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # the same for the global-memory variant
+    # the same for the wide and the global-memory variants
+    "ising_parity_bits_wide": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ising_parity_bits_global": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # n0, u0, idp, dgp, num_ins, num_rem, insert, remove, M, R, stream
     "ising_carry_metropolis": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),

@@ -2,14 +2,19 @@
 
 Replaces ``isingmontecarlo_tpu/ops/checkerboard.py::checkerboard_multi_sweep``
 (a Pallas kernel that holds one replica's field in VMEM for all sweeps).
-The CUDA kernel has two variants, and :func:`k1_variant` picks one from L.
+The CUDA kernel has three variants, and :func:`k1_variant` picks one.
 ``csrc/checkerboard.cu``: a thread-block cluster of ``c`` CTAs per
 replica, each holding a band of ``L/c`` rows of both colour planes in its
 shared memory and reading the rows beside its band from its neighbours'
-(:func:`cluster_size` picks ``c``). ``csrc/checkerboard_global.cu``
-(:func:`checkerboard_multi_sweep_global`), for fields that no cluster
-holds: the planes in global memory, a launch per colour half-step. See
-those files for what bounds them on the card.
+(:func:`cluster_size` picks ``c``). ``csrc/checkerboard_bands.cu``
+(:func:`checkerboard_multi_sweep_bands`), for fields that no cluster holds:
+a cooperative launch a wave of replicas, a CTA a band of rows in shared
+memory for all sweeps, halo rows passed through global memory between
+neighbouring bands at each half-step (:func:`k1_global_plan` cuts the bands
+and waves). ``csrc/checkerboard_global.cu``
+(:func:`checkerboard_multi_sweep_global`), for a replica too large for the
+card's resident shared memory: the planes in global memory, a launch per
+colour half-step. See those files for what bounds them on the card.
 
 Semantics (``src/classical/graph.rs:339-347, 430-447``): energy
 ``E = J sum_<ij> s_i s_j - h sum_i s_i``; each sweep updates the even plane
@@ -51,6 +56,11 @@ _MASK32 = 0xFFFFFFFF
 MAX_SHARED_BYTES = 232_448
 TABLE_BYTES = 40
 CLUSTER_SIZES = (1, 2, 4, 8)
+# An H100's SMs: the default card of the pure planners below.
+H100_SMS = 132
+# The banded variant's CTA: at most this many threads; in the 16-byte path a
+# thread keeps one column quad, so L/8 quads must fit one CTA.
+BAND_MAX_THREADS = 1024
 
 
 def split_planes(x: torch.Tensor) -> torch.Tensor:
@@ -202,14 +212,69 @@ def cluster_sizes(L: int) -> list[int]:
             if L % c == 0 and L * L // c + TABLE_BYTES <= MAX_SHARED_BYTES]
 
 
-def k1_variant(L: int) -> str:
+def band_rows(L: int, nb: int) -> list[tuple[int, int]]:
+    """The rows ``[y0, y1)`` of each of the ``nb`` bands of an L-row field
+    in the banded variant, as ``csrc/checkerboard_bands.cu`` cuts them:
+    ``y0 = b * L // nb``, so the bands tile ``[0, L)`` and differ by at most
+    one row."""
+    return [(b * L // nb, (b + 1) * L // nb) for b in range(nb)]
+
+
+def band_smem_bytes(L: int, rows: int) -> int:
+    """Shared memory of a banded CTA of ``rows`` rows: both colour planes'
+    rows and a halo row on each side, ``(rows + 2) * L`` bytes, and the
+    threshold table."""
+    return (rows + 2) * L + TABLE_BYTES
+
+
+def k1_global_plan(R: int, L: int, n_sms: int = H100_SMS,
+                   smem_bytes: int = MAX_SHARED_BYTES) -> dict:
+    """How K1 runs ``R`` replicas of an L x L field (even L) outside the
+    cluster variant, on a card of ``n_sms`` SMs whose CTA may have
+    ``smem_bytes`` of shared memory. A pure function.
+
+    ``{"path": "bands", "waves": [(r0, count, nb), ...]}``: one cooperative
+    launch a wave, replicas ``r0 .. r0 + count - 1`` cut into ``nb`` bands
+    each (:func:`band_rows`), a CTA a band and one CTA an SM (a 1024-thread
+    CTA takes an SM's registers), so ``count * nb <= n_sms``. A CTA holds at
+    most ``rows = (smem_bytes - TABLE_BYTES) // L - 2`` rows, so a replica
+    needs ``nb_min = ceil(L / rows)`` bands; a wave takes as many replicas
+    as ``nb_min`` bands each fit on the SMs, and spreads them over every
+    SM (``nb = n_sms // count``, at most L).
+
+    ``{"path": "global"}``: a single replica needs more CTAs than the
+    card holds at once (on an H100 every L above 5,404: 132 SMs of 227 KB,
+    one byte a spin), or its 16-byte path more than 1024 threads a row of
+    quads; ``csrc/checkerboard_global.cu`` takes it."""
+    if L % 2:
+        raise ValueError(f"checkerboard sweeps need an even L, got L={L}")
+    rows = (smem_bytes - TABLE_BYTES) // L - 2
+    H = L // 2
+    if rows < 1 or (H % 4 == 0 and H // 4 > BAND_MAX_THREADS):
+        return {"path": "global"}
+    nb_min = -(-L // rows)
+    if nb_min > n_sms:
+        return {"path": "global"}
+    waves, r0 = [], 0
+    while r0 < R:
+        count = min(R - r0, n_sms // nb_min)
+        waves.append((r0, count, min(L, n_sms // count)))
+        r0 += count
+    return {"path": "bands", "waves": waves}
+
+
+def k1_variant(L: int, n_sms: int = H100_SMS, smem_bytes: int = MAX_SHARED_BYTES) -> str:
     """K1's variant for an L x L field (even L): ``"cluster"`` (shared
-    memory, ``csrc/checkerboard.cu``) when some cluster size holds it, else
-    ``"global"`` (``csrc/checkerboard_global.cu``). On an H100 the cluster
-    variant takes every even L up to 680, the multiples of 4 up to 964 and
-    the multiples of 8 up to 1360; every other even L (the first is 682)
-    takes the global one."""
-    return "cluster" if cluster_sizes(L) else "global"
+    memory, ``csrc/checkerboard.cu``) when some cluster size holds it;
+    ``"bands"`` (``csrc/checkerboard_bands.cu``) when :func:`k1_global_plan`
+    places a replica's bands on the card's SMs; else ``"global"``
+    (``csrc/checkerboard_global.cu``). On an H100 the cluster variant takes
+    every even L up to 680, the multiples of 4 up to 964 and the multiples
+    of 8 up to 1360; the banded one every other even L (the first is 682)
+    up to 5,404; the global one every even L past it."""
+    if cluster_sizes(L):
+        return "cluster"
+    return "bands" if k1_global_plan(1, L, n_sms, smem_bytes)["path"] == "bands" else "global"
 
 
 def cluster_size(R: int, L: int, n_sms: int) -> int:
@@ -220,12 +285,12 @@ def cluster_size(R: int, L: int, n_sms: int) -> int:
     more per replica adds remote rows and cluster barriers, so past one
     wave a larger c only costs (on an H100 at L=256, 100 sweeps: R=64 ran
     0.82 ms at c=2 and 1.46 ms at c=4; R=256 2.72 ms at c=1 and 3.26 ms at
-    c=2; ``chip_smoke.py`` phase 3). Raises for an L that takes the global
-    variant."""
+    c=2; ``chip_smoke.py`` phase 3). Raises for an L that no cluster
+    holds."""
     sizes = cluster_sizes(L)
     if not sizes:
         raise ValueError(f"L={L}: no cluster size holds the field in shared memory; "
-                         f"K1 takes its global variant")
+                         f"K1 takes its banded or global variant")
     return max((c for c in sizes if R * c <= n_sms), default=sizes[0])
 
 
@@ -235,9 +300,10 @@ def checkerboard_multi_sweep(spins: torch.Tensor, seed: int, beta, j, h,
     (even L) with uniform ``j`` and ``h``; returns the new ``bool[R, L, L]``.
 
     A CPU tensor takes :func:`checkerboard_multi_sweep_plain`. A CUDA tensor
-    launches K1's variant for L (:func:`k1_variant`): the cluster kernel
-    (counted in ``checkerboard_multi_sweep.launches``) with ``cluster`` CTAs
-    per replica (default :func:`cluster_size` for the card), or
+    launches K1's variant for L on the card (:func:`k1_variant`): the
+    cluster kernel (counted in ``checkerboard_multi_sweep.launches``) with
+    ``cluster`` CTAs per replica (default :func:`cluster_size` for the
+    card), :func:`checkerboard_multi_sweep_bands` or
     :func:`checkerboard_multi_sweep_global`; or raises: also when
     ``cluster`` is not a size that holds the field in shared memory, or
     when the card cannot schedule the cluster."""
@@ -247,9 +313,13 @@ def checkerboard_multi_sweep(spins: torch.Tensor, seed: int, beta, j, h,
         return checkerboard_multi_sweep_plain(spins, seed, beta, j, h, nsweeps)
     sizes = cluster_sizes(L)
     if cluster is None:
-        if k1_variant(L) == "global":
+        n_sms = _build.sm_count(spins.device)
+        variant = k1_variant(L, n_sms)
+        if variant == "bands":
+            return checkerboard_multi_sweep_bands(spins, seed, beta, j, h, nsweeps)
+        if variant == "global":
             return checkerboard_multi_sweep_global(spins, seed, beta, j, h, nsweeps)
-        cluster = cluster_size(R, L, _build.sm_count(spins.device))
+        cluster = cluster_size(R, L, n_sms)
     elif cluster not in sizes:
         raise ValueError(f"cluster={cluster}: L={L} takes a cluster size in {sizes} (c "
                          f"divides L and a band of L*L/c bytes fits a CTA's "
@@ -265,13 +335,52 @@ def checkerboard_multi_sweep(spins: torch.Tensor, seed: int, beta, j, h,
 checkerboard_multi_sweep.launches = 0
 
 
+def checkerboard_multi_sweep_bands(spins: torch.Tensor, seed: int, beta, j, h,
+                                   nsweeps: int) -> torch.Tensor:
+    """K1's banded variant (``csrc/checkerboard_bands.cu``), with the
+    semantics and draws of :func:`checkerboard_multi_sweep`: one cooperative
+    launch a wave of :func:`k1_global_plan`, a CTA a band of rows in shared
+    memory for all ``nsweeps`` sweeps. :func:`checkerboard_multi_sweep`
+    takes it for fields that no cluster holds, up to what the card holds at
+    once.
+
+    A CPU tensor takes :func:`checkerboard_multi_sweep_plain`; a CUDA tensor
+    launches a kernel a wave, each counted in
+    ``checkerboard_multi_sweep_bands.launches``, or raises: also when the
+    plan sends L to :func:`checkerboard_multi_sweep_global`, or when the
+    card cannot hold a wave's CTAs at once (nothing is launched then)."""
+    R, L = _check_lattice(spins)
+    _build.check(spins, "spins", torch.bool, (R, L, L), spins.device)
+    if not _build.use_kernel(spins.device):
+        return checkerboard_multi_sweep_plain(spins, seed, beta, j, h, nsweeps)
+    plan = k1_global_plan(R, L, _build.sm_count(spins.device))
+    if plan["path"] != "bands":
+        raise ValueError(f"L={L}: a replica needs more CTAs of {MAX_SHARED_BYTES} bytes of "
+                         f"shared memory than the card holds at once; K1 takes its global "
+                         f"variant")
+    out = torch.empty_like(spins)
+    table = accept_table(beta, j, h, spins.device)
+    k0, k1 = seed_words(seed)
+    for r0, count, nb in plan["waves"]:
+        halo = torch.empty(2 * count * nb * L, dtype=torch.uint8, device=spins.device)
+        flags = torch.zeros(count * nb, dtype=torch.int32, device=spins.device)
+        _build.launch("ising_checkerboard_bands", spins, out, halo, flags, table, k0, k1, L,
+                      nsweeps, r0, count, nb)
+        checkerboard_multi_sweep_bands.launches += 1
+    return out
+
+
+checkerboard_multi_sweep_bands.launches = 0
+
+
 def checkerboard_multi_sweep_global(spins: torch.Tensor, seed: int, beta, j, h,
                                     nsweeps: int) -> torch.Tensor:
     """K1's global-memory variant (``csrc/checkerboard_global.cu``) at any
     even L, with the semantics and draws of :func:`checkerboard_multi_sweep`:
     the colour planes live in a scratch buffer in global memory, and each
     half-step is a launch of its own. :func:`checkerboard_multi_sweep` takes
-    it for fields that no cluster holds.
+    it for a replica too large for the card's resident shared memory
+    (:func:`k1_global_plan`).
 
     A CPU tensor takes :func:`checkerboard_multi_sweep_plain`; a CUDA tensor
     calls the variant's entry point, which launches ``2 * nsweeps + 2``

@@ -1,8 +1,10 @@
 """Kernel K1 of the port (``ops/checkerboard.py``) on the CPU: its compact
 colour planes against the JAX package's, its Philox against Random123's
 known answers, its plain version against the full-field sweep of both
-packages on the same uniforms, and ``LatticeIsing`` against exact
-enumeration of a 4x4 lattice."""
+packages on the same uniforms, the rules that pick its cluster, banded and
+global variants and cut bands and waves (the dispatch forced, nothing
+launched), and ``LatticeIsing`` against exact enumeration of a 4x4
+lattice; on a card only, each variant against the plain version."""
 
 import itertools
 
@@ -25,6 +27,8 @@ from torch_port_utils import (
     decided_replicas,
     np_,
 )
+
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -141,7 +145,8 @@ def _recording_launches(monkeypatch):
     """Force the kernel path for CPU tensors and record the entry points
     that would be called; nothing is launched."""
     names = []
-    for k in (ops.checkerboard_multi_sweep, ops.checkerboard_multi_sweep_global):
+    for k in (ops.checkerboard_multi_sweep, ops.checkerboard_multi_sweep_bands,
+              ops.checkerboard_multi_sweep_global):
         monkeypatch.setattr(k, "launches", k.launches)  # restored afterwards
     monkeypatch.setattr(_build, "use_kernel", lambda device: True)
     monkeypatch.setattr(_build, "launch", lambda name, *args: names.append(name))
@@ -154,7 +159,7 @@ def test_l_above_shared_memory_raises_before_launch(monkeypatch, L):
     """No cluster of c <= 8 CTAs with L % c == 0 holds a band of L*L/c bytes
     (1362: 1362 % 8 != 0; 1368: one eighth is 233,928 bytes), so asking for
     a cluster raises before anything is launched or the card is asked, while
-    the default takes K1's global variant (here with the dispatch forced to
+    the default takes K1's banded variant (here with the dispatch forced to
     the kernel path)."""
     names = _recording_launches(monkeypatch)
     sp = torch.zeros((1, L, L), dtype=torch.bool)
@@ -162,7 +167,7 @@ def test_l_above_shared_memory_raises_before_launch(monkeypatch, L):
         ops.checkerboard_multi_sweep(sp, 0, 0.4, -1.0, 0.0, 1, cluster=8)
     assert names == []
     ops.checkerboard_multi_sweep(sp, 0, 0.4, -1.0, 0.0, 1)
-    assert names == ["ising_checkerboard_global"]
+    assert names == ["ising_checkerboard_bands"]
 
 
 def _takes_cluster(L):
@@ -173,12 +178,14 @@ def _takes_cluster(L):
 
 @pytest.mark.parametrize("R", [1, 2, 64, 256])
 def test_k1_variant_rule(monkeypatch, R):
-    """Over every even L up to 2100: the cluster variant exactly where some
-    cluster size holds the field (then at :func:`cluster_size`'s c, which
-    is one of them), else the global variant, which the dispatch launches."""
+    """Over every even L up to 2100 and past the banded variant's limit: the
+    cluster variant exactly where some cluster size holds the field (then
+    at :func:`cluster_size`'s c, which is one of them), else the banded
+    variant up to L = 5,404 and the global variant past it, which the
+    dispatch launches (the banded one once a wave)."""
     names = _recording_launches(monkeypatch)
-    for L in range(2, 2101, 2):
-        want = "cluster" if _takes_cluster(L) else "global"
+    for L in [*range(2, 2101, 2), 4096, 5402, 5404, 5406, 6000, 8192]:
+        want = "cluster" if _takes_cluster(L) else "bands" if L <= 5404 else "global"
         assert cb.k1_variant(L) == want, L
         if want == "cluster":
             assert cb.cluster_size(R, L, 132) in cb.cluster_sizes(L)
@@ -188,12 +195,104 @@ def test_k1_variant_rule(monkeypatch, R):
                 cb.cluster_size(R, L, 132)
     if R > 2:
         return  # the dispatch below only at few replicas: the fields are large
-    for L, entry in ((682, "ising_checkerboard_global"), (684, "ising_checkerboard"),
-                     (1360, "ising_checkerboard"), (2048, "ising_checkerboard_global")):
+    for L, entry in ((682, "ising_checkerboard_bands"), (684, "ising_checkerboard"),
+                     (1360, "ising_checkerboard"), (2048, "ising_checkerboard_bands"),
+                     (4096, "ising_checkerboard_bands"), (5406, "ising_checkerboard_global")):
         names.clear()
         ops.checkerboard_multi_sweep(torch.zeros((R, L, L), dtype=torch.bool), 0, 0.4,
                                      -1.0, 0.0, 1)
-        assert names == [entry], L
+        waves = len(cb.k1_global_plan(R, L, 132).get("waves", [None]))
+        assert names == [entry] * (waves if entry == "ising_checkerboard_bands" else 1), L
+
+
+_BANDED_PLANS = (
+    (2, 2048, 132, cb.MAX_SHARED_BYTES),   # one wave of 2 x 66 bands
+    (2, 4096, 132, cb.MAX_SHARED_BYTES),   # a wave a replica, 132 bands
+    (3, 4096, 132, cb.MAX_SHARED_BYTES),   # bands of 31 or 32 rows
+    (1, 682, 132, cb.MAX_SHARED_BYTES),    # the first L no cluster holds
+    (7, 1362, 132, cb.MAX_SHARED_BYTES),   # one wave, 18 bands a replica
+    (7, 2048, 132, cb.MAX_SHARED_BYTES),   # waves of 6 and 1 replicas (22, 132 bands)
+    (64, 2048, 132, cb.MAX_SHARED_BYTES),  # 11 waves: 19 bands a replica at the least
+    (5, 5404, 132, cb.MAX_SHARED_BYTES),   # the largest L: every SM a band
+    (3, 6, 132, cb.MAX_SHARED_BYTES),      # bands of one row
+    (4, 2048, 64, 100_000),                # another card: a wave a replica
+)
+
+
+def test_k1_global_plan_bands_tile_and_fit():
+    """The banded plan at each of ``_BANDED_PLANS`` (R, L, SMs, shared
+    bytes): its waves take every replica once, in order; a wave's CTAs (a
+    band each) never exceed the SMs (one CTA an SM); each replica's bands
+    tile ``[0, L)`` in rows that differ by at most one; and the largest band
+    plus its two halo rows of both planes fits the shared memory budget."""
+    for case in _BANDED_PLANS:
+        R, L, n_sms, smem = case
+        plan = cb.k1_global_plan(R, L, n_sms, smem)
+        assert plan["path"] == "bands", case
+        assert [r0 for r0, _, _ in plan["waves"]] == list(
+            np.cumsum([0] + [count for _, count, _ in plan["waves"]])[:-1]), case
+        assert sum(count for _, count, _ in plan["waves"]) == R, case
+        for r0, count, nb in plan["waves"]:
+            assert 1 <= count * nb <= n_sms and nb <= L, case
+            rows = cb.band_rows(L, nb)
+            assert rows[0][0] == 0 and rows[-1][1] == L, case
+            assert all(a[1] == b[0] for a, b in zip(rows, rows[1:])), case
+            sizes = {y1 - y0 for y0, y1 in rows}
+            assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1, case
+            assert cb.band_smem_bytes(L, max(sizes)) <= smem, case
+
+
+_PLAN_SWITCH_POINTS = (
+    (5404, 132, cb.MAX_SHARED_BYTES, "bands"),    # 41 rows a CTA: 132 bands
+    (5406, 132, cb.MAX_SHARED_BYTES, "global"),   # 40 rows a CTA: 136 bands
+    (6000, 132, cb.MAX_SHARED_BYTES, "global"),
+    (5406, 136, cb.MAX_SHARED_BYTES, "bands"),    # a card with more SMs
+    (2048, 18, cb.MAX_SHARED_BYTES, "global"),    # 19 bands needed
+    (2048, 19, cb.MAX_SHARED_BYTES, "bands"),
+    (2048, 2048, 3 * 2048 + cb.TABLE_BYTES, "bands"),   # one row and two halo rows
+    (2048, 2048, 3 * 2048 + cb.TABLE_BYTES - 1, "global"),
+    (8200, 10_000, 10**9, "global"),  # 16-byte path over 1024 column quads a row
+    (8196, 10_000, 10**9, "bands"),   # the byte path (H odd) takes any width
+)
+
+
+def test_k1_global_plan_switch_points():
+    """Where the banded plan gives way to the global variant, at each of
+    ``_PLAN_SWITCH_POINTS`` (L, SMs, shared bytes, path): a replica's bands
+    need more CTAs than the SMs, a CTA cannot hold one row and its halo, or
+    the 16-byte path's row of column quads needs more than 1024 threads."""
+    for L, n_sms, smem, path in _PLAN_SWITCH_POINTS:
+        plan = cb.k1_global_plan(1, L, n_sms, smem)
+        assert plan["path"] == path, (L, n_sms, smem)
+        if path == "global":
+            assert plan == {"path": "global"}, (L, n_sms, smem)
+
+
+def test_banded_wrapper_launches_a_wave_each(monkeypatch):
+    """The banded wrapper (kernel branch forced, nothing launched): one
+    entry-point call a wave with its first replica, replica count and bands,
+    a halo scratch of two slots of two rows a CTA and zeroed flags a CTA,
+    each call counted; and an L past the card's resident shared memory
+    raises before any launch."""
+    calls = []
+    monkeypatch.setattr(ops.checkerboard_multi_sweep_bands, "launches", 0)
+    monkeypatch.setattr(_build, "use_kernel", lambda device: True)
+    monkeypatch.setattr(_build, "launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    R, L = 3, 4096
+    ops.checkerboard_multi_sweep_bands(torch.zeros((R, L, L), dtype=torch.bool), 7, 0.4,
+                                       -1.0, 0.0, 2)
+    assert [c[0] for c in calls] == ["ising_checkerboard_bands"] * 3
+    assert ops.checkerboard_multi_sweep_bands.launches == 3
+    for (_, args), (r0, count, nb) in zip(calls, cb.k1_global_plan(R, L, 132)["waves"]):
+        halo, flags = args[2], args[3]
+        assert args[7:] == (L, 2, r0, count, nb)
+        assert halo.numel() == 2 * count * nb * 2 * (L // 2) and halo.dtype == torch.uint8
+        assert flags.shape == (count * nb,) and not flags.any()
+    with pytest.raises(ValueError, match="global variant"):
+        ops.checkerboard_multi_sweep_bands(torch.zeros((1, 5406, 5406), dtype=torch.bool), 7,
+                                           0.4, -1.0, 0.0, 2)
+    assert ops.checkerboard_multi_sweep_bands.launches == 3
 
 
 @pytest.mark.parametrize("R,L,n_sms,want", [
@@ -223,6 +322,36 @@ def test_cluster_sizes_divide_l_and_fit_shared_memory(monkeypatch):
     with pytest.raises(ValueError, match="cluster size"):
         ops.checkerboard_multi_sweep(torch.zeros((1, 8, 8), dtype=torch.bool),
                                      0, 0.4, -1.0, 0.0, 1, cluster=3)
+
+
+@pytest.mark.cuda
+def test_cuda_banded_kernel_equals_plain():
+    """K1's banded variant on the card against its plain version: called
+    directly at small L (the byte path at L=6 and 10, words at L=8 and 16,
+    bands of one row), and through the default dispatch at L=1362 (byte
+    path), 2048 (one wave), 4096 at R=2 and R=3 (a wave a replica, bands of
+    31 or 32 rows), each wave a launch; the global variant past the card's
+    resident shared memory (L=6000)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+    for R, L, nsweeps in ((3, 6, 5), (2, 10, 3), (1, 8, 3), (3, 16, 4)):
+        sp = torch.rand((R, L, L), device="cuda") < 0.5
+        want = ops.checkerboard_multi_sweep_plain(sp, 3, 0.4, -1.0, 0.3, nsweeps)
+        assert torch.equal(ops.checkerboard_multi_sweep_bands(sp, 3, 0.4, -1.0, 0.3, nsweeps),
+                           want), (R, L)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for R, L, entry in ((1, 1362, "bands"), (2, 2048, "bands"), (2, 4096, "bands"),
+                        (3, 4096, "bands"), (1, 6000, "global")):
+        sp = torch.rand((R, L, L), device="cuda") < 0.5
+        want = ops.checkerboard_multi_sweep_plain(sp, 5, 0.4, -1.0, 0.1, 2)
+        ops.reset_launch_counts()
+        got = ops.checkerboard_multi_sweep(sp, 5, 0.4, -1.0, 0.1, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (R, L)
+        counts = ops.launch_counts()
+        waves = len(cb.k1_global_plan(R, L, n_sms).get("waves", [None]))
+        assert counts["checkerboard_multi_sweep_" + entry] == (waves if entry == "bands" else 1)
+        assert counts["checkerboard_multi_sweep"] == 0
 
 
 @pytest.mark.cuda

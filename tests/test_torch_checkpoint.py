@@ -24,6 +24,8 @@ from isingmontecarlo_tpu_torch.parallel import tempering as tpt
 from isingmontecarlo_tpu_torch.sse import ising as tising
 from isingmontecarlo_tpu_torch.sse import runner as trunner
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 RING = lattice.chain(4, j=1.0)

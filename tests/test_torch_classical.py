@@ -36,6 +36,8 @@ from torch_port_utils import (
     wolff_draws,
 )
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

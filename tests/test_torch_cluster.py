@@ -27,6 +27,8 @@ from isingmontecarlo_tpu.sse import opstring as jops
 from isingmontecarlo_tpu_torch.sse import cluster as tcl
 from isingmontecarlo_tpu_torch.sse import opstring as tops
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 CASES = {

@@ -16,6 +16,8 @@ from isingmontecarlo_tpu.sse import diagonal as jdiag
 from isingmontecarlo_tpu_torch.sse import diagonal as tdiag
 from isingmontecarlo_tpu_torch.sse import opstring as tops
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

@@ -17,6 +17,8 @@ from isingmontecarlo_tpu_torch import lattice
 from isingmontecarlo_tpu_torch.sse import QmcIsingGraph
 from isingmontecarlo_tpu_torch.sse.runner import Qmc
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 W_XXZ = np.array([[0.5, 0, 0, 0], [0, 1.0, 0.7, 0], [0, 0.7, 1.0, 0], [0, 0, 0, 0.5]])

@@ -40,6 +40,8 @@ from isingmontecarlo_tpu_torch.sse import model as tmodel
 from isingmontecarlo_tpu_torch.sse import opstring as tops
 from isingmontecarlo_tpu_torch.sse import tables as ttables
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

@@ -15,6 +15,8 @@ from isingmontecarlo_tpu.sse import cluster as jcl
 from isingmontecarlo_tpu_torch import ops
 from isingmontecarlo_tpu_torch.sse import cluster as tcl
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

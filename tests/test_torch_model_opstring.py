@@ -21,6 +21,8 @@ from isingmontecarlo_tpu_torch.analysis import autocorr as tac
 from isingmontecarlo_tpu_torch.sse import model as tmodel
 from isingmontecarlo_tpu_torch.sse import opstring as tops
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]

@@ -13,6 +13,8 @@ from isingmontecarlo_tpu_torch import analysis as tanalysis
 from isingmontecarlo_tpu_torch import lattice
 from isingmontecarlo_tpu_torch.sse import QmcIsingGraph
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 NAMES = ("magnetization", "magnetization_squared", "binder_cumulant", "spin_spin_correlation",

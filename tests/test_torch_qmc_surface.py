@@ -27,6 +27,8 @@ from isingmontecarlo_tpu_torch.analysis import autocorr as tac
 from isingmontecarlo_tpu_torch.classical import GraphState as TGraphState
 from isingmontecarlo_tpu_torch.sse import ising as tising
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 EDGES = lattice.square(3, 3)

@@ -39,6 +39,8 @@ from isingmontecarlo_tpu_torch.sse import ising as tising
 from isingmontecarlo_tpu_torch.sse import rvb as trvb
 from isingmontecarlo_tpu_torch.sse.diagonal import diagonal_update
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 RTOL = 1e-5  # p_acc: f32 log-weight sums in another order

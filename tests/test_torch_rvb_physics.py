@@ -17,6 +17,8 @@ from isingmontecarlo_tpu_torch.sse import ising as tising
 from isingmontecarlo_tpu_torch.sse import opstring as tops
 from isingmontecarlo_tpu_torch.sse import rvb as trvb
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

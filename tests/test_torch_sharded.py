@@ -41,6 +41,8 @@ from isingmontecarlo_tpu_torch.parallel import tempering as tpt
 from isingmontecarlo_tpu_torch.sse import ising as tising
 from isingmontecarlo_tpu_torch.sse import opstring as tops
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 WORLD, R, T = 4, 16, 4

@@ -44,6 +44,8 @@ from isingmontecarlo_tpu_torch.sse import cluster as tcl
 from isingmontecarlo_tpu_torch.sse import ising as tising
 from isingmontecarlo_tpu_torch.sse import rvb as trvb
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples" / "torch"

@@ -22,6 +22,8 @@ from isingmontecarlo_tpu.sse import ising as jising
 from isingmontecarlo_tpu.sse import opstring as jops
 from isingmontecarlo_tpu_torch.sse import ising as tising
 
+from torch_port_utils import release_jax_executables  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from isingmontecarlo_tpu.sse.ising import QmcIsingGraph, multi_sweep
@@ -14,6 +15,19 @@ from isingmontecarlo_tpu_torch import convert
 
 MODEL_LEAVES = ("bond_vars", "is_constant", "diag_w", "full_w", "cls", "wtab",
                 "cls_full", "wtab_full")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_jax_executables():
+    """Drop JAX's compiled executables before and after each ``test_torch_*``
+    module that imports this fixture. XLA:CPU maps three memory regions for
+    every kernel it compiles and keeps them while a jit cache holds the
+    executable; a pytest-xdist worker that runs many modules otherwise
+    reaches the kernel's limit on mappings a process (``vm.max_map_count``,
+    65,530 by default) and dies in the next compile or cache load."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 
 def np_(x) -> np.ndarray:
