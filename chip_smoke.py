@@ -19,9 +19,16 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    variant at ragged L (called directly) and, through the default dispatch
    with its launches asserted, at L=1362, 2048 (R=2), 4096 (R=2 and 3: a
    launch a wave), timed at 2048^2, R=2 in turns with the global-memory
-   variant (whose split between plane passes and half-steps is printed),
-   and the global-memory variant at L=6000, past the card's resident
-   shared memory; K2 at K = 1..6 on ragged shapes, each with distinct legs
+   variant (whose split between plane passes and half-steps is printed).
+   K1's tiled variant, past the card's resident shared memory, at forced
+   small tiles (ragged last tiles, halos wider than L, nsweeps not a
+   multiple of k, H % 4 != 0) and, through the default dispatch with its
+   launches asserted, at L=5406 (R=1, 1 sweep), 6000 (R=2, 3 sweeps) and
+   8192 (R=1, 2 sweeps); timed in turns with the global-memory variant,
+   which dispatch no longer reaches, at 5406^2 (the byte path) and 6000^2,
+   R=1, 2 sweeps and at 8192^2, R=1, 100 sweeps (marginal attempts/s
+   against 500 sweeps, and the tiled kernel's SASS issue bound). K2 at
+   K = 1..6 on ragged shapes, each with distinct legs
    and with slots naming one variable on two and three toggled legs. K3
    and K3-hb also at ragged shapes and on tie-heavy inputs, whose slots sit
    on the comparisons' edge, timed on those too. K2's wide and
@@ -55,12 +62,14 @@ Phases, in order; any failed check raises, so the exit code is nonzero:
    spin-flip attempts/s, then the README's ``GraphState`` quickstart on the
    same lattice and worms on a small frustrated lattice; K1 must have been
    launched by this run.
-6b. The classical path past shared memory: ``LatticeIsing(6000)``
-   through K1's global variant, equal to the plain version on one call,
-   and ``LatticeIsing(2048, replicas=2)`` through its banded variant, equal
-   to the plain version on one call, then its energy per site against
-   Onsager's at beta=0.3; the banded variant and one call of the global
-   variant, and not the cluster kernel, must have been launched.
+6b. The classical path past shared memory: ``LatticeIsing(6000)`` and
+   ``LatticeIsing(8192)`` through K1's tiled variant, each equal to the
+   plain version on one call, and ``LatticeIsing(2048, replicas=2)``
+   through its banded variant, equal to the plain version on one call,
+   then its energy per site against Onsager's at beta=0.3; the banded
+   variant and the tiled variant's planned launches, and neither the
+   cluster kernel nor the global-memory variant, must have been
+   launched.
 7. The RVB path: ``QmcIsingGraph`` on the 16x16 benchmark lattice at
    R=16, beta=10, cutoff hint 14000, grown without RVB, then with
    ``set_run_rvb(True)`` (128 updates a timestep, the JAX suite's
@@ -194,8 +203,11 @@ L_BIG, R_BIG, SWEEPS_BIG = 1024, 2, 4
 # K1 beyond every cluster's shared memory: its banded variant.
 L_HUGE, R_HUGE, SWEEPS_HUGE = 2048, 2, 4
 # K1 past the card's resident shared memory (one replica's bands would need
-# more CTAs than SMs): its global-memory variant.
+# more CTAs than SMs): its tiled variant, at 6000^2 and at 8192^2, the large
+# periodic lattices of finite-size scaling (timed at 100 sweeps, and at 500
+# for the marginal rate).
 L_PAST, R_PAST, SWEEPS_PAST = 6000, 1, 2
+L_FSS, SWEEPS_FSS = 8192, 100
 
 # The RVB path: the JAX suite's two_d_rvb_16 row (bench.py:443-449, 285):
 # Gamma=1, beta=10, R=16, (N + 1) // 2 = 128 updates a timestep, cutoff
@@ -233,6 +245,9 @@ KERNEL_INFO = {
                                  "isingmontecarlo_tpu/ops/checkerboard.py:117"),
     "checkerboard_multi_sweep_bands": ("isingmontecarlo_tpu_torch/csrc/checkerboard_bands.cu",
                                        "isingmontecarlo_tpu/ops/checkerboard.py:117"),
+    "checkerboard_multi_sweep_tiles": ("isingmontecarlo_tpu_torch/csrc/checkerboard_tiles.cu",
+                                       "isingmontecarlo_tpu/ops/checkerboard.py:117"),
+    # No longer dispatched: timed in turns beside the tiled variant.
     "checkerboard_multi_sweep_global": ("isingmontecarlo_tpu_torch/csrc/checkerboard_global.cu",
                                         "isingmontecarlo_tpu/ops/checkerboard.py:117"),
     "parity_bits": ("isingmontecarlo_tpu_torch/csrc/parity_bits.cu",
@@ -537,42 +552,47 @@ def sass_loops(sass: str, kernel: str) -> list[list[str]]:
     return loops
 
 
-def inner_loop_instructions(sass: str) -> list[str] | None:
-    """The opcodes of K1's inner loop in a ``cuobjdump -sass`` listing: in
-    the 16-byte kernel (``checkerboard_kernel<true>``), the shortest loop
-    that holds Philox's 20 multiplies (one 4-site group per trip: the loop
-    is not unrolled)."""
-    loops = [span for span in sass_loops(sass, "checkerboard_kernelILb1E")
+def inner_loop_instructions(sass: str, kernel: str = "checkerboard_kernelILb1E"
+                            ) -> list[str] | None:
+    """The opcodes of a K1 kernel's inner loop in a ``cuobjdump -sass``
+    listing: in its 16-byte path (``checkerboard_kernel<true>``, or
+    ``kernel``), the shortest loop that holds Philox's 20 multiplies (one
+    4-site group per trip: the loop is not unrolled)."""
+    loops = [span for span in sass_loops(sass, kernel)
              if sum(op.startswith("IMAD") for op in span) >= 20]
     return min(loops, key=len) if loops else None
 
 
-def k1_issue_bound(attempts: int) -> None:
-    """Print K1's instruction-issue bound: the SASS instructions of its
-    inner loop (:func:`inner_loop_instructions` of ``cuobjdump -sass`` of
-    the built library) for every 4-site group of the call, over four warp
-    instructions per clock per SM at the card's maximum SM clock
-    (nvidia-smi); or why it was not measured."""
+def k1_issue_bound(attempts: int, kernel: str = "checkerboard_kernelILb1E",
+                   label: str = "K1") -> float | None:
+    """Print and return a K1 kernel's instruction-issue bound in ms: the
+    SASS instructions of its inner loop (:func:`inner_loop_instructions` of
+    ``cuobjdump -sass`` of the built library) for every 4-site group of
+    ``attempts``, over four warp instructions per clock per SM at the card's
+    maximum SM clock (nvidia-smi); or print why it was not measured."""
     from pathlib import Path
 
     try:
         tool = Path(_build.nvcc_path()).parent / "cuobjdump"
-        loop = inner_loop_instructions(run([str(tool), "-sass", str(_build.library_path())]))
+        loop = inner_loop_instructions(run([str(tool), "-sass", str(_build.library_path())]),
+                                       kernel)
     except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
-        print(f"K1 issue bound: not measured ({e})", flush=True)
-        return
+        print(f"{label} issue bound: not measured ({e})", flush=True)
+        return None
     if loop is None:
-        print("K1 issue bound: not measured (no inner loop found in the listing)", flush=True)
-        return
+        print(f"{label} issue bound: not measured (no inner loop found in the listing)",
+              flush=True)
+        return None
     clocks = run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                   "--format=csv,noheader,nounits"]).split(",")
     f_sm = 1e6 * float(clocks[1])
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     warp_instrs = attempts / 4 / 32 * len(loop)
     ms = 1e3 * warp_instrs / (WARP_ISSUE_PER_CLOCK_PER_SM * n_sms * f_sm)
-    print(f"K1 issue bound: {len(loop)} SASS instructions per 4-site group in the inner "
+    print(f"{label} issue bound: {len(loop)} SASS instructions per 4-site group in the inner "
           f"loop ({len(loop) / 4:.2f} per attempt), {n_sms} SMs at {clocks[1].strip()} MHz "
-          f"(now {clocks[0].strip()} MHz): {ms:.4f} ms", flush=True)
+          f"(now {clocks[0].strip()} MHz): {ms:.4f} ms for {attempts:.4e} attempts", flush=True)
+    return ms
 
 
 # K2's slots a warp walks per trip of its tile loop (kTileSlots in
@@ -770,7 +790,7 @@ def check_checkerboard(dev) -> dict:
 
 
 K1_ENTRIES = ("checkerboard_multi_sweep", "checkerboard_multi_sweep_bands",
-              "checkerboard_multi_sweep_global")
+              "checkerboard_multi_sweep_tiles", "checkerboard_multi_sweep_global")
 
 
 def checkerboard_through_dispatch(spins, args, want: dict) -> torch.Tensor:
@@ -791,18 +811,16 @@ def checkerboard_through_dispatch(spins, args, want: dict) -> torch.Tensor:
     return got
 
 
-def check_checkerboard_bands(dev) -> tuple[dict, dict]:
+def check_checkerboard_bands(dev) -> dict:
     """Phase 3 for K1 past the cluster variant. The banded variant (called
     directly) equal to the plain version at ragged shapes (L=6: the byte
     path, bands of one row; L=10: H=5; L=8, 16: words, bands of one row);
     then through the default dispatch, equal to plain, with the launches
     asserted: L=1362 (byte path), 2048 at R=2 (one wave), 4096 at R=2 (two
-    waves) and R=3 (three waves, bands of 31 or 32 rows), and L=6000, past
-    the card's resident shared memory, where the global variant runs. At
-    2048^2, R=2 the banded and the global variant (this field's only path
-    before) are timed in turns, with the global variant's split between its
-    plane passes and its half-steps; the banded variant's row from there,
-    the global variant's from L=6000."""
+    waves) and R=3 (three waves, bands of 31 or 32 rows). At 2048^2, R=2
+    the banded and the global variant (this field's only path before) are
+    timed in turns, with the global variant's split between its plane
+    passes and its half-steps; the banded variant's row from there."""
     gen = torch.Generator(device=dev).manual_seed(1)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for Rc, L, nsweeps in ((3, 6, 5), (2, 10, 3), (1, 8, 3), (3, 16, 4)):
@@ -850,26 +868,131 @@ def check_checkerboard_bands(dev) -> tuple[dict, dict]:
           f"{attempts / (ms * 1e-3):.4e} attempts/s in the kernel; the global variant's "
           f"device ms a call by pass {json.dumps(split)}", flush=True)
 
+    return bands
+
+
+# The tiled variant's forced shapes on small fields (R, L, nsweeps, k, ty,
+# tx): ragged last tiles, halos wider than L (L=6: 12 loaded rows), nsweeps
+# not a multiple of k, H % 4 != 0 (L = 6, 10, 22: the byte path) and the
+# word path (L = 16, 24, 40).
+K1_TILE_CASES = ((2, 16, 5, 2, 5, 8), (1, 6, 3, 2, 4, 2), (2, 10, 7, 3, 3, 4),
+                 (1, 22, 6, 3, 4, 6), (1, 24, 11, 5, 7, 16), (3, 40, 9, 4, 9, 16))
+# Through the default dispatch (R, L, nsweeps): the first L past the banded
+# variant (H odd), 6000 and 8192.
+K1_TILE_DISPATCH = ((1, 5406, 1), (2, L_PAST, 3), (1, L_FSS, 2))
+
+
+def check_checkerboard_tiles(dev) -> tuple[dict, dict]:
+    """Phase 3 for K1's tiled variant: ``torch.equal`` to the plain version
+    at :data:`K1_TILE_CASES` (forced tiles), then through the default
+    dispatch at :data:`K1_TILE_DISPATCH` with its launches asserted (a launch
+    each of :func:`k1_tile_plan`, no other variant). Timed in turns with the
+    global-memory variant (no longer dispatched) at 5406^2 (the byte path),
+    R=1, 2 sweeps, at 6000^2, R=1, 2 sweeps
+    (phase 6b's call: both variants' rows come from there) and at 8192^2,
+    R=1, 100 sweeps, with the marginal attempts/s of each (500 sweeps against
+    100) and the tiled kernel's SASS issue bound, for the useful attempts
+    and for those its halos add."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for Rc, L, nsweeps, k, ty, tx in K1_TILE_CASES:
+        spins = torch.rand((Rc, L, L), generator=gen, device=dev) < 0.5
+        want = ops.checkerboard_multi_sweep_plain(spins, 77, 0.7, -1.0, 0.3, nsweeps)
+        got = ops.checkerboard_multi_sweep_tiles(spins, 77, 0.7, -1.0, 0.3, nsweeps, k=k,
+                                                 ty=ty, tx=tx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"checkerboard_multi_sweep_tiles differs from its plain "
+                                 f"version at {tuple(spins.shape)}, {nsweeps} sweeps, k={k}, "
+                                 f"{ty} x {tx} tiles")
+    print(f"checkerboard_multi_sweep_tiles equal to plain at forced (R, L, nsweeps, k, ty, tx) "
+          f"{K1_TILE_CASES}", flush=True)
+    for Rc, L, nsweeps in K1_TILE_DISPATCH:
+        if cb.k1_variant(L, n_sms) != "tiles":
+            raise AssertionError(f"L={L} does not take K1's tiled variant")
+        plan = cb.k1_tile_plan(Rc, L, nsweeps, n_sms)
+        spins = torch.rand((Rc, L, L), generator=gen, device=dev) < 0.5
+        checkerboard_through_dispatch(spins, (5, 0.4, -1.0, 0.1, nsweeps),
+                                      {"checkerboard_multi_sweep_tiles": len(plan["launches"])})
+        print(f"checkerboard_multi_sweep_tiles equal to plain at {tuple(spins.shape)}, "
+              f"{nsweeps} sweep(s), through the default dispatch: "
+              f"{len(plan['launches'])} launch(es), k={plan['k']}, {plan['ty']} x {plan['tx']} "
+              f"tiles, {plan['ctas']} CTAs, {plan['ctas_per_sm']} an SM, {plan['threads']} "
+              f"threads", flush=True)
+
+    entries = {"checkerboard_multi_sweep_global": ops.checkerboard_multi_sweep_global,
+               "checkerboard_multi_sweep_tiles": ops.checkerboard_multi_sweep_tiles}
+    # The byte path (H % 4 != 0: a thread's four sites draw from one or two
+    # Philox calls), timed at the first L past the banded variant.
+    L_byte = K1_TILE_DISPATCH[0][1]
+    spins = torch.rand((1, L_byte, L_byte), generator=gen, device=dev) < 0.5
+    args = (98, BETA_CB, -1.0, 0.1, SWEEPS_PAST)
+    times = in_turns({name: (lambda f=f: f(spins, *args)) for name, f in entries.items()}, 10)
+    attempts = spins.numel() * SWEEPS_PAST
+    print(f"K1 at {tuple(spins.shape)}, {SWEEPS_PAST} sweeps (the tiled variant's byte path): "
+          f"device ms in turns {json.dumps(times)}; "
+          f"{attempts / (np.mean(times['checkerboard_multi_sweep_tiles']) * 1e-3):.4e} "
+          f"attempts/s in the tiled kernel", flush=True)
+
+    rows = {}
     spins = torch.rand((R_PAST, L_PAST, L_PAST), generator=gen, device=dev) < 0.5
     args = (99, BETA_CB, -1.0, 0.1, SWEEPS_PAST)
-    if cb.k1_variant(L_PAST, n_sms) != "global":
-        raise AssertionError(f"L={L_PAST} does not take K1's global variant")
-    got = checkerboard_through_dispatch(spins, args, {"checkerboard_multi_sweep_global": 1})
     want = ops.checkerboard_multi_sweep_plain(spins, *args)
-    err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    ms = device_ms(lambda: ops.checkerboard_multi_sweep_global(spins, *args), 10)
-    call_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_global(spins, *args), 10)
+    times = in_turns({name: (lambda f=f: f(spins, *args)) for name, f in entries.items()}, 10)
     plain_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_plain(spins, *args), 1)
     attempts = spins.numel() * SWEEPS_PAST
-    glob = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **bound(2 * nbytes(spins), attempts * K1_OPS_PER_ATTEMPT), "library_ms": None}
-    print(f"checkerboard_multi_sweep_global at {tuple(spins.shape)}, {SWEEPS_PAST} sweeps, "
-          f"through the default dispatch: equal to plain (max_abs_err {err}); "
-          f"{ms:.4f} ms on the device ({2 * SWEEPS_PAST + 2} kernels; {call_ms:.4f} ms a call, "
-          f"CUDA events), plain {plain_ms:.4f} ms, bound {glob['bound_ms']:.4f} ms "
-          f"({glob['bound_by']}, published f32 peak); {attempts / (ms * 1e-3):.4e} attempts/s "
-          f"in the kernels", flush=True)
-    return bands, glob
+    for name, f in entries.items():
+        got = f(spins, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version at {tuple(spins.shape)}")
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        rows[name] = {"max_abs_err": err, "ms": float(np.mean(times[name])),
+                      "plain_ms": plain_ms,
+                      **bound(2 * nbytes(spins), attempts * K1_OPS_PER_ATTEMPT),
+                      "library_ms": None}
+    plan = cb.k1_tile_plan(R_PAST, L_PAST, SWEEPS_PAST, n_sms)
+    loaded = plan["ctas"] * (plan["ty"] + 2 * plan["halo_rows"]) * (
+        plan["tx"] + 2 * plan["halo_cols"])
+    tiles = rows["checkerboard_multi_sweep_tiles"]
+    call_ms = cuda_ms(lambda: ops.checkerboard_multi_sweep_tiles(spins, *args), 10)
+    print(f"K1 at {tuple(spins.shape)}, {SWEEPS_PAST} sweeps: device ms in turns "
+          f"{json.dumps(times)} (the global variant's recorded row: 0.2712); the tiled "
+          f"{tiles['ms']:.4f} ms ({call_ms:.4f} ms a call, CUDA events; {len(plan['launches'])} "
+          f"launch(es), k={plan['k']}, {plan['ty']} x {plan['tx']} tiles, {plan['ctas']} CTAs, "
+          f"{loaded / spins.numel():.3f}x the field's sites loaded), plain {plain_ms:.4f} ms, "
+          f"bound {tiles['bound_ms']:.4f} ms ({tiles['bound_by']}, published f32 peak); "
+          f"{attempts / (tiles['ms'] * 1e-3):.4e} attempts/s in the kernel, the global "
+          f"variant's {attempts / (rows['checkerboard_multi_sweep_global']['ms'] * 1e-3):.4e}",
+          flush=True)
+    issue = k1_issue_bound(attempts, "checkerboard_tiles_kernelILb1E", "K1 tiled")
+    if issue is not None:
+        print(f"K1 tiled at {tuple(spins.shape)}: {issue / tiles['ms']:.1%} of the issue bound "
+              f"of the useful attempts; {issue * loaded / spins.numel() / tiles['ms']:.1%} "
+              f"with the halos' attempts", flush=True)
+
+    spins = torch.rand((1, L_FSS, L_FSS), generator=gen, device=dev) < 0.5
+    fss = {}
+    for n in (SWEEPS_FSS, 5 * SWEEPS_FSS):
+        a = (7, BETA_CB, -1.0, 0.1, n)
+        fss[n] = in_turns({name: (lambda f=f, a=a: f(spins, *a)) for name, f in entries.items()},
+                          2)
+    attempts = spins.numel() * SWEEPS_FSS
+    rate = {name: attempts / (np.mean(fss[SWEEPS_FSS][name]) * 1e-3) for name in entries}
+    marginal = {name: 4 * attempts / ((np.mean(fss[5 * SWEEPS_FSS][name])
+                                       - np.mean(fss[SWEEPS_FSS][name])) * 1e-3)
+                for name in entries}
+    plan = cb.k1_tile_plan(1, L_FSS, SWEEPS_FSS, n_sms)
+    print(f"K1 at {tuple(spins.shape)}, {SWEEPS_FSS} sweeps: device ms in turns "
+          f"{json.dumps(fss[SWEEPS_FSS])}, {5 * SWEEPS_FSS} sweeps {json.dumps(fss[5 * SWEEPS_FSS])}; "
+          f"attempts/s at {SWEEPS_FSS} sweeps {json.dumps({k: f'{v:.4e}' for k, v in rate.items()})}, "
+          f"marginal {json.dumps({k: f'{v:.4e}' for k, v in marginal.items()})}; tiled / global "
+          f"{np.mean(fss[SWEEPS_FSS]['checkerboard_multi_sweep_global']) / np.mean(fss[SWEEPS_FSS]['checkerboard_multi_sweep_tiles']):.2f}x; "
+          f"plan k={plan['k']}, {plan['ty']} x {plan['tx']} tiles, {len(plan['launches'])} "
+          f"launches, {plan['ctas']} CTAs, {plan['ctas_per_sm']} an SM, modelled "
+          f"{plan['seconds'] * 1e3:.4f} ms", flush=True)
+    k1_issue_bound(attempts, "checkerboard_tiles_kernelILb1E", "K1 tiled")
+    return rows["checkerboard_multi_sweep_tiles"], rows["checkerboard_multi_sweep_global"]
 
 
 def label_inputs(rng, dev, S: int, E: int, Mg: int, R: int):
@@ -1075,8 +1198,9 @@ def check_kernels(dev) -> tuple[dict, dict]:
     small ragged shape and at the main-path shape, where both are timed.
     Returns the per-kernel results and K3's and K3-hb's chain bounds."""
     results = {"checkerboard_multi_sweep": check_checkerboard(dev), **check_labels(dev)}
-    (results["checkerboard_multi_sweep_bands"],
-     results["checkerboard_multi_sweep_global"]) = check_checkerboard_bands(dev)
+    results["checkerboard_multi_sweep_bands"] = check_checkerboard_bands(dev)
+    (results["checkerboard_multi_sweep_tiles"],
+     results["checkerboard_multi_sweep_global"]) = check_checkerboard_tiles(dev)
     rng = np.random.default_rng(0)
     full = kernel_inputs(rng, dev, K, M, R, N)
     results["parity_bits"] = check_parity(dev, rng, full["parity_bits"])
@@ -1382,19 +1506,21 @@ def run_classical_global(dev) -> dict:
     on the same spins and seed, then the energy per site at beta=0.3 after
     equilibration against Onsager's value (the correlation length is a few
     sites, so 2048^2 is the infinite lattice to within the statistics).
-    Then ``LatticeIsing(6000, replicas=1)``, past the card's resident shared
-    memory, through K1's global variant: a call equal to the plain
-    version."""
+    Before it ``LatticeIsing(6000)`` and ``LatticeIsing(8192)``, past the
+    card's resident shared memory, through K1's tiled variant: a call each
+    equal to the plain version."""
     t0 = time.perf_counter()
-    g = LatticeIsing(L_PAST, j=-1.0, replicas=R_PAST, seed=4, device=dev)
-    start = g.spins.clone()
-    g.run_sweeps(SWEEPS_PAST, 0.3)
-    want = ops.checkerboard_multi_sweep_plain(start, 4 * 1000003 + 1, 0.3, -1.0, 0.0,
-                                              SWEEPS_PAST)
-    if not torch.equal(g.spins, want):
-        raise AssertionError(f"LatticeIsing({L_PAST}) differs from the plain version")
-    print(f"LatticeIsing({L_PAST}, replicas={R_PAST}): a call of {SWEEPS_PAST} sweeps equal "
-          f"to the plain version", flush=True)
+    for L, seed in ((L_PAST, 4), (L_FSS, 6)):
+        g = LatticeIsing(L, j=-1.0, replicas=R_PAST, seed=seed, device=dev)
+        start = g.spins.clone()
+        g.run_sweeps(SWEEPS_PAST, 0.3)
+        want = ops.checkerboard_multi_sweep_plain(start, seed * 1000003 + 1, 0.3, -1.0, 0.0,
+                                                  SWEEPS_PAST)
+        if not torch.equal(g.spins, want):
+            raise AssertionError(f"LatticeIsing({L}) differs from the plain version")
+        print(f"LatticeIsing({L}, replicas={R_PAST}): a call of {SWEEPS_PAST} sweeps equal "
+              f"to the plain version", flush=True)
+        del g, start, want
     g = LatticeIsing(L_HUGE, j=-1.0, replicas=R_HUGE, seed=9, device=dev)
     start = g.spins.clone()
     g.run_sweeps(SWEEPS_HUGE, 0.3)
@@ -2754,19 +2880,28 @@ def main() -> None:
         raise AssertionError(f"K1 was not launched by the classical path: {counts}")
     launches["checkerboard_multi_sweep"] = counts["checkerboard_multi_sweep"]
 
-    phase(f"6b. classical path past shared memory: {L_HUGE}^2 and {L_PAST}^2 lattices")
+    phase(f"6b. classical path past shared memory: {L_HUGE}^2, {L_PAST}^2 and {L_FSS}^2 "
+          f"lattices")
     ops.reset_launch_counts()
     run_classical_global(dev)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    print(f"kernel launches in the {L_HUGE}^2 and {L_PAST}^2 classical paths: {counts}",
-          flush=True)
+    print(f"kernel launches in the {L_HUGE}^2, {L_PAST}^2 and {L_FSS}^2 classical paths: "
+          f"{counts}", flush=True)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiled = sum(len(cb.k1_tile_plan(R_PAST, L, SWEEPS_PAST, n_sms)["launches"])
+                for L in (L_PAST, L_FSS))
     if (counts["checkerboard_multi_sweep_bands"] <= 0 or counts["checkerboard_multi_sweep"]
-            or counts["checkerboard_multi_sweep_global"] != 1):
-        raise AssertionError(f"the {L_HUGE}^2 lattice did not run through K1's banded variant "
-                             f"and the {L_PAST}^2 one call through its global variant: {counts}")
-    for name in ("checkerboard_multi_sweep_bands", "checkerboard_multi_sweep_global"):
+            or counts["checkerboard_multi_sweep_tiles"] != tiled
+            or counts["checkerboard_multi_sweep_global"]):
+        raise AssertionError(f"the {L_HUGE}^2 lattice did not run through K1's banded variant, "
+                             f"or the {L_PAST}^2 and {L_FSS}^2 ones not through its tiled "
+                             f"variant alone ({tiled} launches): {counts}")
+    for name in ("checkerboard_multi_sweep_bands", "checkerboard_multi_sweep_tiles"):
         launches[name] = counts[name]
+    # Dispatch no longer reaches the global-memory variant: no main path
+    # launches it (phase 3 times it in turns with the tiled one).
+    launches["checkerboard_multi_sweep_global"] = counts["checkerboard_multi_sweep_global"]
 
     phase("7. RVB path: two_d_rvb_16 (16x16 benchmark lattice, beta=10, R=16, U=128)")
     _, counts = run_rvb(dev)

@@ -4,8 +4,9 @@ over kernel K1, :func:`isingmontecarlo_tpu_torch.ops.checkerboard_multi_sweep`.
 
 Spins live as ``bool[R, L, L]``; a call of :meth:`LatticeIsing.run_sweeps`
 runs all its sweeps in one call of K1 on a CUDA device (one kernel launch,
-or a launch a colour half-step where the field is too large for the
-cluster kernel) and in the plain version on the CPU. Energy conventions match ``src/classical/graph.rs:430-447``.
+a launch a wave of replicas, or a launch per k sweeps where the field is
+too large for the card's resident shared memory) and in the plain version
+on the CPU. Energy conventions match ``src/classical/graph.rs:430-447``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) for the TPU kernels of
 the classical checkerboard path (K1) and the SSE timestep (K2, K3, K3-hb,
 K4), each beside its plain PyTorch version. K1 has a cluster, a banded
-and a global-memory variant, K2 a shared, a wide and a global-memory
+and a tiled variant (and a global-memory one that is no longer dispatched), K2 a shared, a wide and a global-memory
 variant, each picked from the field's or the model's size; K4's gather
 also takes the hook-and-compress steps around it, as three entry points.
 The library builds from ``csrc/`` at first use (see :mod:`._build`)."""
@@ -11,6 +11,7 @@ from isingmontecarlo_tpu_torch.ops.checkerboard import (
     checkerboard_multi_sweep_bands,
     checkerboard_multi_sweep_global,
     checkerboard_multi_sweep_plain,
+    checkerboard_multi_sweep_tiles,
 )
 from isingmontecarlo_tpu_torch.ops.diag_carry import (
     carry_decisions,
@@ -35,7 +36,7 @@ from isingmontecarlo_tpu_torch.ops.take_kernel import (
 
 # The wrappers whose ``launches`` count the kernel launches of a run.
 KERNELS = (checkerboard_multi_sweep, checkerboard_multi_sweep_bands,
-           checkerboard_multi_sweep_global, parity_bits, parity_bits_wide, parity_bits_global,
+           checkerboard_multi_sweep_tiles, checkerboard_multi_sweep_global, parity_bits, parity_bits_wide, parity_bits_global,
            carry_decisions, carry_decisions_heatbath, take0, hook_min, pointer_jump)
 
 
@@ -58,6 +59,7 @@ __all__ = [
     "checkerboard_multi_sweep_bands",
     "checkerboard_multi_sweep_global",
     "checkerboard_multi_sweep_plain",
+    "checkerboard_multi_sweep_tiles",
     "hook_min",
     "hook_min_plain",
     "launch_counts",

@@ -42,6 +42,9 @@ _SIGNATURES = {
     # in, out, halo (scratch), flags (zeroed), table, seed word 0, seed word
     # 1, L, nsweeps, first replica, replicas, bands a replica, stream
     "ising_checkerboard_bands": (_P, _P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _I, _P),
+    # in, out, table, seed word 0, seed word 1, R, L, first sweep, sweeps,
+    # k (sweeps a launch: the halo), tile rows, tile columns, threads, stream
+    "ising_checkerboard_tiles": (_P, _P, _P, _U, _U, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # in, out, planes (scratch), table, seed word 0, seed word 1, R, L,
     # nsweeps, stream
     "ising_checkerboard_global": (_P, _P, _P, _P, _U, _U, _I, _I, _I, _P),

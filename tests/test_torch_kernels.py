@@ -633,6 +633,7 @@ def test_wrappers_check_inputs_and_devices():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"checkerboard_multi_sweep": 0,
                                    "checkerboard_multi_sweep_bands": 0,
+                                   "checkerboard_multi_sweep_tiles": 0,
                                    "checkerboard_multi_sweep_global": 0, "parity_bits": 0,
                                    "parity_bits_wide": 0, "parity_bits_global": 0,
                                    "carry_decisions": 0, "carry_decisions_heatbath": 0,
