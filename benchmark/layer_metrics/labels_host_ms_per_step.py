@@ -1,0 +1,11 @@
+"""The labelling of the cluster update a timestep: the host wall time of the
+program's ``sse.labels`` spans (``sse/cluster.py`` ``compact_labels``: the
+``fits`` read, the compaction and the hook-and-compress rounds with their
+flag reads), in ms over the traced slice's timesteps. A host time under the
+profiler, waits on host reads included. Moves ``replica_sweeps_per_s``."""
+
+from benchmark.layer_metrics._recorder import span_ms_per_step
+
+
+def read(trace: dict) -> float | None:
+    return span_ms_per_step(trace, "sse.labels")

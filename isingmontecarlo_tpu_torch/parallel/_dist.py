@@ -4,10 +4,13 @@ process group, and a launcher that runs a function on ``n`` spawned ranks.
 The collectives take an explicit ``group`` (``None``: the world group) and
 use forms that both the ``gloo`` and the ``nccl`` backend take with CUDA
 tensors: the list form of ``all_gather`` and ``all_reduce``. Bool tensors
-travel as bytes. Each call adds what it moved to a per-process counter
-under a tag (:func:`traffic`): an all-gather counts the gathered tensor,
-``world`` times the local one; an all-reduce the reduced tensor. The
-counter is how a caller checks that only label vectors cross ranks.
+travel as bytes. Each call adds what it moved to ``profiling``'s counters
+``dist.<tag>.calls`` and ``dist.<tag>.bytes`` under a tag, and is the span
+``dist.all_gather.<tag>`` or ``dist.all_reduce.<tag>``: an all-gather
+counts the gathered tensor, ``world`` times the local one; an all-reduce
+the reduced tensor. :func:`traffic` reads those counters, with the local
+shapes of each tag: how a caller checks that only label vectors cross
+ranks.
 """
 
 from __future__ import annotations
@@ -24,29 +27,36 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from isingmontecarlo_tpu_torch import profiling
+
 # The timeout of every collective of a group that :func:`spawn` starts, its
 # rendezvous included: a rank that waits longer on the others fails.
 COLLECTIVE_TIMEOUT_S = 60.0
 
-_TRAFFIC: dict[str, dict] = {}
+# The local (shape, dtype) of each tag's collectives; their calls and bytes
+# are profiling's ``dist.`` counters.
+_SHAPES: dict[str, set] = {}
 
 
 def reset_traffic() -> None:
-    _TRAFFIC.clear()
+    _SHAPES.clear()
+    profiling.reset_counters("dist.")
 
 
 def traffic() -> dict[str, dict]:
     """Per tag: ``calls``, ``bytes`` and the local ``shapes`` (with dtype)
     that went through a collective since :func:`reset_traffic`."""
-    return {tag: {"calls": t["calls"], "bytes": t["bytes"], "shapes": sorted(t["shapes"])}
-            for tag, t in _TRAFFIC.items()}
+    counts = profiling.counters()
+    return {tag: {"calls": counts.get(f"dist.{tag}.calls", 0),
+                  "bytes": counts.get(f"dist.{tag}.bytes", 0), "shapes": sorted(shapes)}
+            for tag, shapes in _SHAPES.items()}
 
 
 def _count(tag: str, local: torch.Tensor, nbytes: int) -> None:
-    t = _TRAFFIC.setdefault(tag, {"calls": 0, "bytes": 0, "shapes": set()})
-    t["calls"] += 1
-    t["bytes"] += nbytes
-    t["shapes"].add((tuple(local.shape), str(local.dtype).removeprefix("torch.")))
+    profiling.count(f"dist.{tag}.calls")
+    profiling.count(f"dist.{tag}.bytes", nbytes)
+    _SHAPES.setdefault(tag, set()).add(
+        (tuple(local.shape), str(local.dtype).removeprefix("torch.")))
 
 
 def require_group() -> None:
@@ -64,7 +74,8 @@ def all_gather(x: torch.Tensor, group=None, dim: int = 0, tag: str = "swap") -> 
     if as_bytes:
         src = src.view(torch.uint8)
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
+    with profiling.span(f"dist.all_gather.{tag}"):
+        dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     _count(tag, x, out.numel() * out.element_size())
     return out.view(torch.bool) if as_bytes else out
@@ -72,7 +83,8 @@ def all_gather(x: torch.Tensor, group=None, dim: int = 0, tag: str = "swap") -> 
 
 def _all_reduce(x: torch.Tensor, op, group, tag: str) -> torch.Tensor:
     out = x.clone()
-    dist.all_reduce(out, op=op, group=group)
+    with profiling.span(f"dist.all_reduce.{tag}"):
+        dist.all_reduce(out, op=op, group=group)
     _count(tag, x, out.numel() * out.element_size())
     return out
 

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from isingmontecarlo_tpu_torch import profiling
 from isingmontecarlo_tpu_torch.analysis import autocorr as _ac
 from isingmontecarlo_tpu_torch.lattice import edge_arrays
 from isingmontecarlo_tpu_torch.parallel import _dist
@@ -293,32 +294,33 @@ def _swap_labels(sse: SseState, model: BondModel, betas: torch.Tensor,
     weighed on their own rank and only ``(delta, blocked)`` cross), every
     rank computes the permutation of all ``R`` replicas from the same
     ``u``, and keeps its block."""
-    R_l = betas.shape[0]
-    signed = xors is not None
-    n_g = gather(_ops.op_count(sse.ops))
-    betas_g = gather(betas)
-    scales_g = gather(scales) if hetero or signed else None
-    xors_g = gather(xors) if signed else None
-    if signed:
-        cpart = candidate_partner(betas_g, parity)[lo:lo + R_l].long()
-        delta, blocked = _ops.log_weight_delta(sse.ops, model, scales, xors, scales_g[cpart],
-                                               xors_g[cpart])
-        perm, nsw = tempering_step(n_g, betas_g, u, parity, delta=gather(delta),
-                                   blocked=gather(blocked))
-    elif hetero:
-        perm, nsw = tempering_step(n_g, betas_g, u, parity,
-                                   gather(_ops.bond_counts(sse.ops, model.nbonds)),
-                                   torch.log(scales_g.clamp(min=_TINY)))
-    else:
-        perm, nsw = tempering_step(n_g, betas_g, u, parity)
-    take = perm[lo:lo + R_l].long()
-    if hetero or signed:
-        scales = scales_g[take]
-    if signed:
-        xors = xors_g[take]
-    if hb is not None and hb.cum_max_w.dim() == 2:
-        hb = HeatBathTables(cum_max_w=gather(hb.cum_max_w)[take], total=gather(hb.total)[take])
-    return betas_g[take], scales, xors, hb, nsw, perm
+    with profiling.span("pt.swap"):
+        R_l = betas.shape[0]
+        signed = xors is not None
+        n_g = gather(_ops.op_count(sse.ops))
+        betas_g = gather(betas)
+        scales_g = gather(scales) if hetero or signed else None
+        xors_g = gather(xors) if signed else None
+        if signed:
+            cpart = candidate_partner(betas_g, parity)[lo:lo + R_l].long()
+            delta, blocked = _ops.log_weight_delta(sse.ops, model, scales, xors, scales_g[cpart],
+                                                   xors_g[cpart])
+            perm, nsw = tempering_step(n_g, betas_g, u, parity, delta=gather(delta),
+                                       blocked=gather(blocked))
+        elif hetero:
+            perm, nsw = tempering_step(n_g, betas_g, u, parity,
+                                       gather(_ops.bond_counts(sse.ops, model.nbonds)),
+                                       torch.log(scales_g.clamp(min=_TINY)))
+        else:
+            perm, nsw = tempering_step(n_g, betas_g, u, parity)
+        take = perm[lo:lo + R_l].long()
+        if hetero or signed:
+            scales = scales_g[take]
+        if signed:
+            xors = xors_g[take]
+        if hb is not None and hb.cum_max_w.dim() == 2:
+            hb = HeatBathTables(cum_max_w=gather(hb.cum_max_w)[take], total=gather(hb.total)[take])
+        return betas_g[take], scales, xors, hb, nsw, perm
 
 
 def _sweep_chunk(sse, betas, scales, parity, do_swap, model, nsweeps, next_draws, hb, heatbath,
@@ -806,6 +808,7 @@ class TemperingContainer:
             g.sse, g.model, self.betas, self.scales, self.xors, self._hb, self.hetero,
             self._draws().swap((self.replicas,)), self._parity, **kw)
         self._parity = 1 - self._parity
+        profiling.count("host_reads.tempering_step")
         swaps = int(swaps)
         self.total_swaps += swaps
         return swaps
@@ -851,9 +854,11 @@ class TemperingContainer:
              bt) = chunk_fn(g.sse, self.betas, self.scales, self._parity, do_swap, g.model,
                             todo, self._draws, **kw)
             if self._shard and any(samp):
-                st, bt = self._global(st, 1), self._global(bt, 1)
+                with profiling.span("pt.samples"):
+                    st, bt = self._global(st, 1), self._global(bt, 1)
             if self._hb is not None:
                 self._hb = hb
+            profiling.count("host_reads.parity_swaps")
             self._parity, swapped = (int(x) for x in torch.stack([parity, nswaps]).tolist())
             self.total_swaps += swapped
             for i, s in enumerate(samp):

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from isingmontecarlo_tpu_torch import profiling
 from isingmontecarlo_tpu_torch.ops.take_kernel import hook_min, pointer_jump, take0
 from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import (
@@ -158,40 +159,43 @@ def hook_compress_labels(u: torch.Tensor, v: torch.Tensor, S: int) -> torch.Tens
         # Round 1 from the identity: the endpoint labels are (u, v) themselves.
         Pn = hook_min(P, u, v, first=rounds == 1)
         P, _ = pointer_jump(Pn, P, N_COMPRESS, flag, rounds)
+        profiling.count("host_reads.labels")
         if int(flag) != rounds:
             return P
 
 
-def compact_dispatch(sg: SegGraph, consume: Callable,
-                     label_cap: int | None = None,
-                     edge_cap: int | None = None,
-                     overflow_noop=None):
-    """Run ``consume(W, seg_in, seg_out, SL)`` on a compacted label problem
-    of ``label_cap`` rows and ``edge_cap`` edges when every replica fits,
-    else at full size ``S`` (or return ``overflow_noop`` when given: the
-    sweep's cap-holding callers skip the cluster update instead).
+def compact_labels(sg: SegGraph, label_cap: int | None = None,
+                   edge_cap: int | None = None, skip_overflow: bool = False):
+    """Label the components of the segment graph: on a compacted problem of
+    ``label_cap`` rows and ``edge_cap`` edges when every replica fits, else
+    at full size ``S`` (or return None when ``skip_overflow``: the sweep's
+    cap-holding callers skip the cluster update instead). Returns ``(W,
+    seg_in, seg_out, SL)``: the labels ``i32[SL, R]`` and each op slot's
+    in- and out-side rows in them.
 
     Same defaults and branch rule as the JAX package's ``_compact_dispatch``:
     the label-space size ``SL`` the branch picks is the shape of the cluster
     uniforms, so it must agree. The ``fits`` test is a host read."""
-    u, v, S = sg.u, sg.v, sg.S
-    E = u.shape[0]
-    C = label_cap or max(256, 16 * (-(-(S // 2) // 16)))
-    CE = min(edge_cap or max(256, 16 * (-(-(2 * E // 3) // 16))), E)
-    if C + 64 >= S:
-        return consume(hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S)
-    cdump = C - 1
-    not_edge = u == S - 1
-    fits = bool((sg.nseg.max() <= cdump) & ((~not_edge).sum(0).max() <= CE))
-    if fits:
-        _, perm = torch.sort(not_edge.to(torch.int32), dim=0, stable=True)
-        uc = torch.gather(u, 0, perm[:CE]).clamp(max=cdump)
-        vc = torch.gather(v, 0, perm[:CE]).clamp(max=cdump)
-        return consume(hook_compress_labels(uc, vc, C),
-                       sg.seg_in.clamp(max=cdump), sg.seg_out.clamp(max=cdump), C)
-    if overflow_noop is not None:
-        return overflow_noop
-    return consume(hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S)
+    with profiling.span("sse.labels"):
+        u, v, S = sg.u, sg.v, sg.S
+        E = u.shape[0]
+        C = label_cap or max(256, 16 * (-(-(S // 2) // 16)))
+        CE = min(edge_cap or max(256, 16 * (-(-(2 * E // 3) // 16))), E)
+        if C + 64 >= S:
+            return hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S
+        cdump = C - 1
+        not_edge = u == S - 1
+        profiling.count("host_reads.fits")
+        fits = bool((sg.nseg.max() <= cdump) & ((~not_edge).sum(0).max() <= CE))
+        if fits:
+            _, perm = torch.sort(not_edge.to(torch.int32), dim=0, stable=True)
+            uc = torch.gather(u, 0, perm[:CE]).clamp(max=cdump)
+            vc = torch.gather(v, 0, perm[:CE]).clamp(max=cdump)
+            return (hook_compress_labels(uc, vc, C), sg.seg_in.clamp(max=cdump),
+                    sg.seg_out.clamp(max=cdump), C)
+        if skip_overflow:
+            return None
+        return hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S
 
 
 def cluster_labels(ops: OpString, model: BondModel, label_cap: int | None = None,
@@ -203,12 +207,9 @@ def cluster_labels(ops: OpString, model: BondModel, label_cap: int | None = None
     partition. Invalid slots share the dump segment's label."""
     sg = segment_graph(ops, model)
     M, R = ops.bond.shape
-
-    def consume(W, s_in, s_out, SL):
-        lab_in, lab_out = take0(W, s_in.contiguous(), s_out.contiguous())
-        return torch.stack([lab_in, lab_out], dim=1).reshape(2 * M, R)
-
-    return compact_dispatch(sg, consume, label_cap=label_cap, edge_cap=edge_cap)
+    W, s_in, s_out, _ = compact_labels(sg, label_cap, edge_cap)
+    lab_in, lab_out = take0(W, s_in.contiguous(), s_out.contiguous())
+    return torch.stack([lab_in, lab_out], dim=1).reshape(2 * M, R)
 
 
 def root_flip_prob(lab_in, lab_out, valid_op, w_cur, w_flip, SL: int,
@@ -262,43 +263,42 @@ def cluster_update_impl(ops: OpString, state: torch.Tensor,
     M, R = ops.bond.shape
     K = ops.max_legs
     KM = K * M
-    valid_op = ops.bond >= 0
-    b = ops.bond.clamp(min=0)
-    si = substate_index(ops.inputs)
-    so = substate_index(ops.outputs)
-    if bond_xor is not None:
-        x = fetch_xor(bond_xor, b)
-        si, so = si ^ x, so ^ x
-    legmask = (1 << bond_fetch(model.arity(), b)) - 1
-    bl = b.long()
-    w_cur = model.full_w[bl, si.long(), so.long()]
-    w_flip = model.full_w[bl, (si ^ legmask).long(), (so ^ legmask).long()]
+    labels = compact_labels(sg, label_cap, edge_cap, skip_overflow=label_cap is not None)
 
-    def flip_decisions(W, s_in, s_out, SL):
-        # [M, R] component root ids of both sides, one launch
-        lab_in, lab_out = take0(W, s_in.contiguous(), s_out.contiguous())
-        flip_prob, frozen = root_flip_prob(lab_in, lab_out, valid_op, w_cur,
-                                           w_flip, SL, prob)
-        flip_root = ((draw_uniform((SL, R)) < flip_prob) & ~frozen).to(torch.int32)
-        f_in, f_out = take0(flip_root, lab_in, lab_out)
-        return f_in.bool() & valid_op, f_out.bool() & valid_op
+    with profiling.span("sse.flips"):
+        valid_op = ops.bond >= 0
+        b = ops.bond.clamp(min=0)
+        si = substate_index(ops.inputs)
+        so = substate_index(ops.outputs)
+        if bond_xor is not None:
+            x = fetch_xor(bond_xor, b)
+            si, so = si ^ x, so ^ x
+        legmask = (1 << bond_fetch(model.arity(), b)) - 1
+        bl = b.long()
+        w_cur = model.full_w[bl, si.long(), so.long()]
+        w_flip = model.full_w[bl, (si ^ legmask).long(), (so ^ legmask).long()]
+        if label_cap is not None:
+            noop = (torch.zeros_like(valid_op), torch.zeros_like(valid_op))
+        if labels is None:
+            flip_in, flip_out = noop
+        else:
+            W, s_in, s_out, SL = labels
+            # [M, R] component root ids of both sides, one launch
+            lab_in, lab_out = take0(W, s_in.contiguous(), s_out.contiguous())
+            flip_prob, frozen = root_flip_prob(lab_in, lab_out, valid_op, w_cur,
+                                               w_flip, SL, prob)
+            flip_root = ((draw_uniform((SL, R)) < flip_prob) & ~frozen).to(torch.int32)
+            f_in, f_out = take0(flip_root, lab_in, lab_out)
+            flip_in, flip_out = f_in.bool() & valid_op, f_out.bool() & valid_op
 
-    noop = None
-    if label_cap is not None:
-        noop = (torch.zeros_like(valid_op), torch.zeros_like(valid_op))
-    flip_in, flip_out = compact_dispatch(
-        sg, flip_decisions, label_cap=label_cap, edge_cap=edge_cap,
-        overflow_noop=noop,
-    )
+        lv = op_vars(ops, model) >= 0  # [K, M, R]
+        new_inputs = ops.inputs ^ (flip_in[None] & lv)
+        new_outputs = ops.outputs ^ (flip_out[None] & lv)
 
-    lv = op_vars(ops, model) >= 0  # [K, M, R]
-    new_inputs = ops.inputs ^ (flip_in[None] & lv)
-    new_outputs = ops.outputs ^ (flip_out[None] & lv)
-
-    # The p=0 state is the first op's input on each variable
-    # (cluster.rs:150-160); variables without ops keep their spin.
-    has_head = sg.head_f < KM
-    first_val = torch.gather(new_inputs.reshape(KM, R), 0,
-                             sg.head_f.clamp(max=KM - 1).long())  # [N, R]
-    new_state = torch.where(has_head.T, first_val.T, state)
+        # The p=0 state is the first op's input on each variable
+        # (cluster.rs:150-160); variables without ops keep their spin.
+        has_head = sg.head_f < KM
+        first_val = torch.gather(new_inputs.reshape(KM, R), 0,
+                                 sg.head_f.clamp(max=KM - 1).long())  # [N, R]
+        new_state = torch.where(has_head.T, first_val.T, state)
     return OpString(bond=ops.bond, inputs=new_inputs, outputs=new_outputs), new_state

@@ -26,6 +26,7 @@ from typing import Any, Callable, NamedTuple, Protocol, Sequence
 import numpy as np
 import torch
 
+from isingmontecarlo_tpu_torch import profiling
 from isingmontecarlo_tpu_torch.analysis import autocorr as _ac
 from isingmontecarlo_tpu_torch.lattice import Edge, edge_arrays, nvars_from_edges
 from isingmontecarlo_tpu_torch.sse import cluster as _cluster
@@ -157,32 +158,38 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
         raise ValueError("RVB updates do not support per-replica sign patterns (bond_xor)")
     ops, state = sse
     M, R = ops.bond.shape
-    ops = diagonal_update(ops, state, beta, draws.diagonal((3, M, R)), model,
-                          hb=hb, heatbath=heatbath, bond_scale=bond_scale,
-                          bond_xor=bond_xor)
-    if n_rvb > 0:
-        ops, state, succ = _rvb.rvb_sweep(ops, state, draws.rvb(n_rvb), model,
-                                          rvb_tables, n_rvb, compact_cutoff=rvb_compact)
-    else:
-        succ = torch.zeros((R,), dtype=torch.int32, device=state.device)
-    if not do_cluster:
-        return SseState(ops, state), succ
-    if cluster_caps is not None:
-        lc, ec = cluster_caps
-    else:
-        lc, ec = M + model.nvars + 1, None
-    # One segment graph serves the cluster update and the free-spin
-    # resample: a variable has ops iff its worldline has a head leg, and
-    # cluster flips never move ops.
-    sg = _cluster.segment_graph(ops, model)
-    has_op = (sg.head_f < ops.max_legs * M).T
-    ops, state = _cluster.cluster_update_impl(
-        ops, state, draws.cluster, model, 0.5, lc, ec, sg, bond_xor
-    )
-    return resample_free_spins(
-        SseState(ops, state), draws.free_spins((R, model.nvars)), model,
-        has_op=has_op,
-    ), succ
+    with profiling.span("sse.sweep"):
+        with profiling.span("sse.diagonal"):
+            ops = diagonal_update(ops, state, beta, draws.diagonal((3, M, R)), model,
+                                  hb=hb, heatbath=heatbath, bond_scale=bond_scale,
+                                  bond_xor=bond_xor)
+        if n_rvb > 0:
+            with profiling.span("sse.rvb"):
+                ops, state, succ = _rvb.rvb_sweep(ops, state, draws.rvb(n_rvb), model,
+                                                  rvb_tables, n_rvb, compact_cutoff=rvb_compact)
+        else:
+            succ = torch.zeros((R,), dtype=torch.int32, device=state.device)
+        if not do_cluster:
+            return SseState(ops, state), succ
+        if cluster_caps is not None:
+            lc, ec = cluster_caps
+        else:
+            lc, ec = M + model.nvars + 1, None
+        with profiling.span("sse.cluster"):
+            # One segment graph serves the cluster update and the free-spin
+            # resample: a variable has ops iff its worldline has a head leg,
+            # and cluster flips never move ops.
+            with profiling.span("sse.segment_graph"):
+                sg = _cluster.segment_graph(ops, model)
+                has_op = (sg.head_f < ops.max_legs * M).T
+            ops, state = _cluster.cluster_update_impl(
+                ops, state, draws.cluster, model, 0.5, lc, ec, sg, bond_xor
+            )
+        with profiling.span("sse.free_spins"):
+            return resample_free_spins(
+                SseState(ops, state), draws.free_spins((R, model.nvars)), model,
+                has_op=has_op,
+            ), succ
 
 
 def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
@@ -206,9 +213,10 @@ def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,
     if cluster_flags is None:
         flags = [i % cluster_every == cluster_every - 1 for i in range(nsweeps)]
     else:
-        flags = [bool(f) for f in (cluster_flags.tolist()
-                                   if isinstance(cluster_flags, torch.Tensor)
-                                   else cluster_flags)]
+        if isinstance(cluster_flags, torch.Tensor):
+            profiling.count("host_reads.flags")
+            cluster_flags = cluster_flags.tolist()
+        flags = [bool(f) for f in cluster_flags]
         if len(flags) != nsweeps:
             raise ValueError(f"{len(flags)} cluster_flags for {nsweeps} timesteps")
     ns, states = [], []
@@ -675,23 +683,25 @@ class QmcIsingGraph:
         caps and of the RVB compaction cutoff. One host read, of maxima over
         the replicas (and over the ranks, through ``_reduce_max``, on a
         sharded container)."""
-        stats = torch.stack([_ops.op_count(self.sse.ops).max().to(torch.int64),
-                             *cap_counts(self.sse.ops, self.model)])
-        if self._reduce_max is not None:
-            stats = self._reduce_max(stats)
-        n_max, nc, nm = (int(x) for x in stats.tolist())
-        want = n_max + n_max // 2
-        if want > self.cutoff:
-            new_m = ((want + 15) // 16) * 16
-            self.sse = self.sse._replace(ops=_ops.grow(self.sse.ops, new_m))
-        if self._run_rvb:
-            self._rvb_compact = rvb_compact_cutoff(n_max, self._rvb_compact, self.cutoff)
-        N = self.nvars
-        want_l = max(256, 16 * ((int((nc + N + 2) * 1.3) + 15) // 16))
-        want_e = max(256, 16 * ((int((nm + N + 2) * 1.3) + 15) // 16))
-        cur = self._cluster_caps or (0, 0)
-        if want_l > cur[0] or want_e > cur[1]:
-            self._cluster_caps = (max(want_l, cur[0]), max(want_e, cur[1]))
+        with profiling.span("sse.grow"):
+            stats = torch.stack([_ops.op_count(self.sse.ops).max().to(torch.int64),
+                                 *cap_counts(self.sse.ops, self.model)])
+            if self._reduce_max is not None:
+                stats = self._reduce_max(stats)
+            profiling.count("host_reads.grow")
+            n_max, nc, nm = (int(x) for x in stats.tolist())
+            want = n_max + n_max // 2
+            if want > self.cutoff:
+                new_m = ((want + 15) // 16) * 16
+                self.sse = self.sse._replace(ops=_ops.grow(self.sse.ops, new_m))
+            if self._run_rvb:
+                self._rvb_compact = rvb_compact_cutoff(n_max, self._rvb_compact, self.cutoff)
+            N = self.nvars
+            want_l = max(256, 16 * ((int((nc + N + 2) * 1.3) + 15) // 16))
+            want_e = max(256, 16 * ((int((nm + N + 2) * 1.3) + 15) // 16))
+            cur = self._cluster_caps or (0, 0)
+            if want_l > cur[0] or want_e > cur[1]:
+                self._cluster_caps = (max(want_l, cur[0]), max(want_e, cur[1]))
 
     def timestep(self, beta: float) -> torch.Tensor:
         """One timestep; returns the state (``qmc_ising.rs:644-795``)."""
@@ -762,10 +772,16 @@ class QmcIsingGraph:
         state_fold: Callable[[Any, torch.Tensor], Any],
         sampling_freq: int | None = None,
         chunk: int = 16,
+        op_counts: list | None = None,
     ):
         """Fold ``state_fold(acc, state)`` over the states of every
         ``sampling_freq``-th step and average their op counts
-        (``qmc_stepper.rs:133-162``). Returns ``(acc, energy f32[R])``."""
+        (``qmc_stepper.rs:133-162``). Returns ``(acc, energy f32[R])``.
+
+        ``op_counts``, where given, gets each chunk's op counts after every
+        timestep appended, ``i32[todo, R]`` on the device (no host read):
+        their concatenation is the run's per-timestep op-count series, from
+        which the energy's ESS is taken."""
         freq = sampling_freq or 1
         acc = init_acc
         total_n = torch.zeros((self.replicas,), dtype=torch.float64, device=self.device)
@@ -785,6 +801,8 @@ class QmcIsingGraph:
                 collect_states=collect, **self._diag_args(), **self._rvb_args(),
             )
             self._count_rvb(succ, todo)
+            if op_counts is not None:
+                op_counts.append(ns)
             for i in range(todo):
                 if (done + i + 1) % freq == 0:
                     if states is not None:
