@@ -30,8 +30,10 @@ the profiler's own record.
 update a call); while spans are recorded, each count is also tagged with
 the timestep it fell in. The program counts each host read of its main
 path under ``host_reads.<site>`` (``labels``, ``fits``, ``grow``,
-``flags``, ``parity_swaps``, ``tempering_step``) and each collective under
-``dist.<tag>.calls`` and ``dist.<tag>.bytes``.
+``flags``, ``parity_swaps``, ``tempering_step``), each collective under
+``dist.<tag>.calls`` and ``dist.<tag>.bytes``, and each run of a stage of
+the SSE timestep under ``sse.graph.replays``, ``sse.graph.captures`` or
+``sse.graph.eager`` (``sse/graphs.py``).
 """
 
 from __future__ import annotations

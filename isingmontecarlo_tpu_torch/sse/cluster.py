@@ -29,6 +29,7 @@ import torch
 
 from isingmontecarlo_tpu_torch import profiling
 from isingmontecarlo_tpu_torch.ops.take_kernel import hook_min, pointer_jump, take0
+from isingmontecarlo_tpu_torch.sse.graphs import run_eager
 from isingmontecarlo_tpu_torch.sse.model import BondModel
 from isingmontecarlo_tpu_torch.sse.opstring import (
     SORT_BIG, OpString, op_vars, sorted_legs, substate_index,
@@ -137,22 +138,27 @@ def segment_graph(ops: OpString, model: BondModel) -> SegGraph:
     )
 
 
-def hook_compress_labels(u: torch.Tensor, v: torch.Tensor, S: int) -> torch.Tensor:
-    """Connected components over the segment edge list ``(u, v) i32[E, R]``
-    by hook-and-compress: each round hooks ``min(P[u], P[v])`` onto the row
-    of the larger endpoint label (``P[max] <- min``, :func:`ops.hook_min`),
-    then pointer-jumps ``P <- P[P]`` :data:`N_COMPRESS` times in one launch
-    (:func:`ops.pointer_jump`), until a round changes nothing. Returns
-    ``P i32[S, R]``: every segment of a component gets the component's
-    minimum id (``P[x] <= x`` and labels never leave the component, so the
-    minimum is its own root).
+def label_init(S: int, R: int, device: torch.device):
+    """The hook-and-compress rounds' start: the identity labels ``P
+    i32[S, R]`` and the round flag ``i32[1]`` at 0."""
+    P = torch.arange(S, dtype=torch.int32, device=device)[:, None].repeat(1, R)
+    return P, torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def hook_rounds(P: torch.Tensor, flag: torch.Tensor, u: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """Hook-and-compress rounds over the edge list ``(u, v) i32[E, R]`` from
+    :func:`label_init`'s ``(P, flag)``: each round hooks ``min(P[u],
+    P[v])`` onto the row of the larger endpoint label (``P[max] <- min``,
+    :func:`ops.hook_min`), then pointer-jumps ``P <- P[P]``
+    :data:`N_COMPRESS` times in one launch (:func:`ops.pointer_jump`),
+    until a round changes nothing. Returns ``P``: every segment of a
+    component gets the component's minimum id (``P[x] <= x`` and labels
+    never leave the component, so the minimum is its own root).
 
     The fixpoint test reads one flag to the host per round: the jump of
-    round ``k`` sets the shared flag to ``k`` where the round changed a
-    label, so the flag is zeroed once, not every round."""
-    R = u.shape[1]
-    P = torch.arange(S, dtype=torch.int32, device=u.device)[:, None].repeat(1, R)
-    flag = torch.zeros(1, dtype=torch.int32, device=u.device)
+    round ``k`` sets the flag to ``k`` where the round changed a label, so
+    the flag is zeroed once, not every round."""
     rounds = 0
     while True:
         rounds += 1
@@ -164,8 +170,59 @@ def hook_compress_labels(u: torch.Tensor, v: torch.Tensor, S: int) -> torch.Tens
             return P
 
 
+def hook_compress_labels(u: torch.Tensor, v: torch.Tensor, S: int) -> torch.Tensor:
+    """Connected components over the segment edge list ``(u, v) i32[E, R]``
+    by hook-and-compress (:func:`hook_rounds`); returns ``P i32[S, R]``."""
+    return hook_rounds(*label_init(S, u.shape[1], u.device), u, v)
+
+
+def label_plan(S: int, E: int, label_cap: int | None = None,
+               edge_cap: int | None = None) -> tuple[int, int] | None:
+    """The ``(C, CE)`` rows and edges of the compacted label problem of
+    ``S`` rows and ``E`` edges, or None where it would not be smaller:
+    the JAX package's ``_compact_dispatch`` defaults and rule, since the
+    label-space size is the shape of the cluster uniforms."""
+    C = label_cap or max(256, 16 * (-(-(S // 2) // 16)))
+    CE = min(edge_cap or max(256, 16 * (-(-(2 * E // 3) // 16))), E)
+    return None if C + 64 >= S else (C, CE)
+
+
+def fits_flag(sg: SegGraph, C: int, CE: int) -> torch.Tensor:
+    """``bool[]``: every replica's segments fit ``C - 1`` rows and its
+    real edges ``CE`` (the dump row ``C - 1`` takes what is past them)."""
+    return (sg.nseg.max() <= C - 1) & ((sg.u != sg.S - 1).sum(0).max() <= CE)
+
+
+def compact_problem(sg: SegGraph, C: int, CE: int):
+    """The compacted label problem where :func:`fits_flag` holds: ``(uc,
+    vc)`` the first ``CE`` real edges (a stable sort puts them first) and
+    each op slot's in- and out-side rows, clamped to ``C - 1``, and
+    :func:`label_init`'s ``(P, flag)`` for ``C`` rows."""
+    cdump = C - 1
+    not_edge = sg.u == sg.S - 1
+    _, perm = torch.sort(not_edge.to(torch.int32), dim=0, stable=True)
+    uc = torch.gather(sg.u, 0, perm[:CE]).clamp(max=cdump)
+    vc = torch.gather(sg.v, 0, perm[:CE]).clamp(max=cdump)
+    return (uc, vc, sg.seg_in.clamp(max=cdump), sg.seg_out.clamp(max=cdump),
+            *label_init(C, sg.u.shape[1], sg.u.device))
+
+
+def segment_stage(ops: OpString, model: BondModel, label_cap: int | None = None,
+                  edge_cap: int | None = None):
+    """The timestep's segment-graph stage: ``(sg, has_op, fits)``, the
+    :func:`segment_graph`, whether each variable carries an op ``bool[R,
+    N]`` (a variable has ops iff its worldline has a head leg), and
+    :func:`fits_flag` of the compacted label problem of the caps, or None
+    where :func:`label_plan` labels at full size."""
+    sg = segment_graph(ops, model)
+    has_op = (sg.head_f < ops.max_legs * ops.bond.shape[0]).T
+    plan = label_plan(sg.S, sg.u.shape[0], label_cap, edge_cap)
+    return sg, has_op, None if plan is None else fits_flag(sg, *plan)
+
+
 def compact_labels(sg: SegGraph, label_cap: int | None = None,
-                   edge_cap: int | None = None, skip_overflow: bool = False):
+                   edge_cap: int | None = None, skip_overflow: bool = False,
+                   fits: torch.Tensor | None = None, stage=run_eager):
     """Label the components of the segment graph: on a compacted problem of
     ``label_cap`` rows and ``edge_cap`` edges when every replica fits, else
     at full size ``S`` (or return None when ``skip_overflow``: the sweep's
@@ -173,29 +230,25 @@ def compact_labels(sg: SegGraph, label_cap: int | None = None,
     seg_in, seg_out, SL)``: the labels ``i32[SL, R]`` and each op slot's
     in- and out-side rows in them.
 
-    Same defaults and branch rule as the JAX package's ``_compact_dispatch``:
-    the label-space size ``SL`` the branch picks is the shape of the cluster
-    uniforms, so it must agree. The ``fits`` test is a host read."""
+    Same defaults and branch rule as the JAX package's ``_compact_dispatch``
+    (:func:`label_plan`). The ``fits`` test is a host read, of ``fits`` where
+    the caller computed it. ``stage`` runs the start of the rounds
+    (:func:`compact_problem`, :func:`label_init`; :class:`graphs.Stager`)."""
     with profiling.span("sse.labels"):
-        u, v, S = sg.u, sg.v, sg.S
-        E = u.shape[0]
-        C = label_cap or max(256, 16 * (-(-(S // 2) // 16)))
-        CE = min(edge_cap or max(256, 16 * (-(-(2 * E // 3) // 16))), E)
-        if C + 64 >= S:
-            return hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S
-        cdump = C - 1
-        not_edge = u == S - 1
-        profiling.count("host_reads.fits")
-        fits = bool((sg.nseg.max() <= cdump) & ((~not_edge).sum(0).max() <= CE))
-        if fits:
-            _, perm = torch.sort(not_edge.to(torch.int32), dim=0, stable=True)
-            uc = torch.gather(u, 0, perm[:CE]).clamp(max=cdump)
-            vc = torch.gather(v, 0, perm[:CE]).clamp(max=cdump)
-            return (hook_compress_labels(uc, vc, C), sg.seg_in.clamp(max=cdump),
-                    sg.seg_out.clamp(max=cdump), C)
-        if skip_overflow:
-            return None
-        return hook_compress_labels(u, v, S), sg.seg_in, sg.seg_out, S
+        R = sg.u.shape[1]
+        plan = label_plan(sg.S, sg.u.shape[0], label_cap, edge_cap)
+        if plan is not None:
+            C, CE = plan
+            if fits is None:
+                fits = fits_flag(sg, C, CE)
+            profiling.count("host_reads.fits")
+            if bool(fits):
+                uc, vc, s_in, s_out, P, flag = stage("compact", compact_problem, sg, C, CE)
+                return hook_rounds(P, flag, uc, vc), s_in, s_out, C
+            if skip_overflow:
+                return None
+        P, flag = stage("label_init", label_init, sg.S, R, sg.u.device)
+        return hook_rounds(P, flag, sg.u, sg.v), sg.seg_in, sg.seg_out, sg.S
 
 
 def cluster_labels(ops: OpString, model: BondModel, label_cap: int | None = None,
@@ -250,7 +303,8 @@ def cluster_update_impl(ops: OpString, state: torch.Tensor,
                         draw_uniform: Callable, model: BondModel,
                         prob: float, label_cap: int | None,
                         edge_cap: int | None, sg: SegGraph,
-                        bond_xor: torch.Tensor | None = None):
+                        bond_xor: torch.Tensor | None = None,
+                        fits: torch.Tensor | None = None, stage=run_eager):
     """Flip every cluster with probability ``prob`` times its weight ratio.
 
     ``draw_uniform(shape)`` returns the per-root uniforms ``f32[SL, R]``
@@ -258,47 +312,72 @@ def cluster_update_impl(ops: OpString, state: torch.Tensor,
     ``label_cap`` set, a cap overflow skips the update (all-False flips),
     as in the JAX sweep path. ``bond_xor i32[R, NB]`` looks each replica's
     weights up under its sign pattern (``diagonal.py``); the spins stay
-    physical, and the XOR commutes with the cluster's leg flip. Returns
-    ``(ops, state)``."""
-    M, R = ops.bond.shape
-    K = ops.max_legs
-    KM = K * M
-    labels = compact_labels(sg, label_cap, edge_cap, skip_overflow=label_cap is not None)
-
+    physical, and the XOR commutes with the cluster's leg flip. ``fits`` and
+    ``stage`` go to :func:`compact_labels`; ``stage`` also runs the flips
+    (:func:`cluster_flips` or :func:`noop_flips`). Returns ``(ops,
+    state)``."""
+    R = ops.bond.shape[1]
+    labels = compact_labels(sg, label_cap, edge_cap, skip_overflow=label_cap is not None,
+                            fits=fits, stage=stage)
     with profiling.span("sse.flips"):
-        valid_op = ops.bond >= 0
-        b = ops.bond.clamp(min=0)
-        si = substate_index(ops.inputs)
-        so = substate_index(ops.outputs)
-        if bond_xor is not None:
-            x = fetch_xor(bond_xor, b)
-            si, so = si ^ x, so ^ x
-        legmask = (1 << bond_fetch(model.arity(), b)) - 1
-        bl = b.long()
-        w_cur = model.full_w[bl, si.long(), so.long()]
-        w_flip = model.full_w[bl, (si ^ legmask).long(), (so ^ legmask).long()]
-        if label_cap is not None:
-            noop = (torch.zeros_like(valid_op), torch.zeros_like(valid_op))
         if labels is None:
-            flip_in, flip_out = noop
-        else:
-            W, s_in, s_out, SL = labels
-            # [M, R] component root ids of both sides, one launch
-            lab_in, lab_out = take0(W, s_in.contiguous(), s_out.contiguous())
-            flip_prob, frozen = root_flip_prob(lab_in, lab_out, valid_op, w_cur,
-                                               w_flip, SL, prob)
-            flip_root = ((draw_uniform((SL, R)) < flip_prob) & ~frozen).to(torch.int32)
-            f_in, f_out = take0(flip_root, lab_in, lab_out)
-            flip_in, flip_out = f_in.bool() & valid_op, f_out.bool() & valid_op
+            return stage("flips_noop", noop_flips, ops, state, sg.head_f, model)
+        W, s_in, s_out, SL = labels
+        return stage("flips", cluster_flips, ops, state, sg.head_f, W, s_in, s_out,
+                     draw_uniform((SL, R)), model, prob, bond_xor)
 
-        lv = op_vars(ops, model) >= 0  # [K, M, R]
-        new_inputs = ops.inputs ^ (flip_in[None] & lv)
-        new_outputs = ops.outputs ^ (flip_out[None] & lv)
 
-        # The p=0 state is the first op's input on each variable
-        # (cluster.rs:150-160); variables without ops keep their spin.
-        has_head = sg.head_f < KM
-        first_val = torch.gather(new_inputs.reshape(KM, R), 0,
-                                 sg.head_f.clamp(max=KM - 1).long())  # [N, R]
-        new_state = torch.where(has_head.T, first_val.T, state)
+def cluster_flips(ops: OpString, state: torch.Tensor, head_f: torch.Tensor,
+                  W: torch.Tensor, s_in: torch.Tensor, s_out: torch.Tensor,
+                  u_root: torch.Tensor, model: BondModel, prob: float,
+                  bond_xor: torch.Tensor | None = None):
+    """The flips of the labelled clusters ``W i32[SL, R]`` (each op slot's
+    sides at rows ``s_in``, ``s_out``): a root flips where its uniform
+    ``u_root f32[SL, R]`` is below :func:`root_flip_prob`'s and its cluster
+    is not frozen. Returns ``(ops, state)`` (:func:`apply_flips`)."""
+    SL = W.shape[0]
+    valid_op = ops.bond >= 0
+    b = ops.bond.clamp(min=0)
+    si = substate_index(ops.inputs)
+    so = substate_index(ops.outputs)
+    if bond_xor is not None:
+        x = fetch_xor(bond_xor, b)
+        si, so = si ^ x, so ^ x
+    legmask = (1 << bond_fetch(model.arity(), b)) - 1
+    bl = b.long()
+    w_cur = model.full_w[bl, si.long(), so.long()]
+    w_flip = model.full_w[bl, (si ^ legmask).long(), (so ^ legmask).long()]
+    # [M, R] component root ids of both sides, one launch
+    lab_in, lab_out = take0(W, s_in.contiguous(), s_out.contiguous())
+    flip_prob, frozen = root_flip_prob(lab_in, lab_out, valid_op, w_cur, w_flip, SL, prob)
+    flip_root = ((u_root < flip_prob) & ~frozen).to(torch.int32)
+    f_in, f_out = take0(flip_root, lab_in, lab_out)
+    return apply_flips(ops, state, head_f, f_in.bool() & valid_op, f_out.bool() & valid_op,
+                       model)
+
+
+def noop_flips(ops: OpString, state: torch.Tensor, head_f: torch.Tensor,
+               model: BondModel):
+    """:func:`apply_flips` with no flip: a cap overflow's skipped update."""
+    off = torch.zeros_like(ops.bond, dtype=torch.bool)
+    return apply_flips(ops, state, head_f, off, off, model)
+
+
+def apply_flips(ops: OpString, state: torch.Tensor, head_f: torch.Tensor,
+                flip_in: torch.Tensor, flip_out: torch.Tensor, model: BondModel):
+    """Flip the legs of the op sides ``flip_in``, ``flip_out bool[M, R]``
+    and re-read the p=0 state from each variable's first leg ``head_f``
+    (:class:`SegGraph`). Returns ``(ops, state)``."""
+    M, R = ops.bond.shape
+    KM = ops.max_legs * M
+    lv = op_vars(ops, model) >= 0  # [K, M, R]
+    new_inputs = ops.inputs ^ (flip_in[None] & lv)
+    new_outputs = ops.outputs ^ (flip_out[None] & lv)
+
+    # The p=0 state is the first op's input on each variable
+    # (cluster.rs:150-160); variables without ops keep their spin.
+    has_head = head_f < KM
+    first_val = torch.gather(new_inputs.reshape(KM, R), 0,
+                             head_f.clamp(max=KM - 1).long())  # [N, R]
+    new_state = torch.where(has_head.T, first_val.T, state)
     return OpString(bond=ops.bond, inputs=new_inputs, outputs=new_outputs), new_state

@@ -31,6 +31,7 @@ from isingmontecarlo_tpu_torch.analysis import autocorr as _ac
 from isingmontecarlo_tpu_torch.lattice import Edge, edge_arrays, nvars_from_edges
 from isingmontecarlo_tpu_torch.sse import cluster as _cluster
 from isingmontecarlo_tpu_torch.sse import debug as _debug
+from isingmontecarlo_tpu_torch.sse import graphs as _graphs
 from isingmontecarlo_tpu_torch.sse import loops as _loops
 from isingmontecarlo_tpu_torch.sse import opstring as _ops
 from isingmontecarlo_tpu_torch.sse import rvb as _rvb
@@ -158,11 +159,27 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
         raise ValueError("RVB updates do not support per-replica sign patterns (bond_xor)")
     ops, state = sse
     M, R = ops.bond.shape
+    N = model.nvars
+    if cluster_caps is not None:
+        lc, ec = cluster_caps
+    else:
+        lc, ec = M + N + 1, None
+    if isinstance(beta, torch.Tensor) or np.ndim(beta) != 0:
+        beta = torch.as_tensor(beta, dtype=torch.float32, device=state.device)
+    else:
+        # A fill on the device: a copy from the host's pageable memory would
+        # wait for the card to drain its queue.
+        beta = torch.full((), float(beta), dtype=torch.float32, device=state.device)
+    # The stages without a host read run as CUDA graphs on the card
+    # (sse/graphs.py); the draws and the reads between them stay eager.
+    stage = _graphs.stager(model, state.device, (M, lc, ec))
+    # The diagonal update and the free spins do not depend on the caps.
+    by_cutoff = stage.resized((M, None, None))
     with profiling.span("sse.sweep"):
         with profiling.span("sse.diagonal"):
-            ops = diagonal_update(ops, state, beta, draws.diagonal((3, M, R)), model,
-                                  hb=hb, heatbath=heatbath, bond_scale=bond_scale,
-                                  bond_xor=bond_xor)
+            u = draws.diagonal((3, M, R))
+            ops = by_cutoff("diagonal", diagonal_update, ops, state, beta, u, model, hb,
+                            heatbath, bond_scale, bond_xor)
         if n_rvb > 0:
             with profiling.span("sse.rvb"):
                 ops, state, succ = _rvb.rvb_sweep(ops, state, draws.rvb(n_rvb), model,
@@ -170,26 +187,22 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
         else:
             succ = torch.zeros((R,), dtype=torch.int32, device=state.device)
         if not do_cluster:
-            return SseState(ops, state), succ
-        if cluster_caps is not None:
-            lc, ec = cluster_caps
-        else:
-            lc, ec = M + model.nvars + 1, None
+            return stage.detach(SseState(ops, state)), succ
         with profiling.span("sse.cluster"):
             # One segment graph serves the cluster update and the free-spin
-            # resample: a variable has ops iff its worldline has a head leg,
-            # and cluster flips never move ops.
+            # resample (cluster flips never move ops), and computes the
+            # labels' fits test for the read in sse.labels.
             with profiling.span("sse.segment_graph"):
-                sg = _cluster.segment_graph(ops, model)
-                has_op = (sg.head_f < ops.max_legs * M).T
+                sg, has_op, fits = stage("segment_graph", _cluster.segment_stage, ops, model,
+                                         lc, ec)
             ops, state = _cluster.cluster_update_impl(
-                ops, state, draws.cluster, model, 0.5, lc, ec, sg, bond_xor
+                ops, state, draws.cluster, model, 0.5, lc, ec, sg, bond_xor, fits=fits,
+                stage=stage,
             )
         with profiling.span("sse.free_spins"):
-            return resample_free_spins(
-                SseState(ops, state), draws.free_spins((R, model.nvars)), model,
-                has_op=has_op,
-            ), succ
+            sse = by_cutoff("free_spins", resample_free_spins, SseState(ops, state),
+                            draws.free_spins((R, N)), model, has_op)
+            return stage.detach(sse), succ
 
 
 def multi_sweep(sse: SseState, beta, model: BondModel, nsweeps: int,

@@ -60,10 +60,9 @@ def generic_sweep(sse: SseState, beta, model: BondModel, draws: Draws,
             lc, ec = M + model.nvars + 1, None
         # One segment graph serves the cluster update and the free-spin
         # resample: cluster flips never move ops.
-        sg = _cluster.segment_graph(ops, model)
-        has_op = (sg.head_f < ops.max_legs * M).T
+        sg, has_op, fits = _cluster.segment_stage(ops, model, lc, ec)
         ops, state = _cluster.cluster_update_impl(ops, state, draws.cluster, model,
-                                                  0.5, lc, ec, sg)
+                                                  0.5, lc, ec, sg, fits=fits)
     return resample_free_spins(SseState(ops, state), draws.free_spins((R, model.nvars)),
                                model, has_op=has_op), reverted
 

@@ -213,7 +213,12 @@ def main() -> None:
     # take0 outside the hook).
     from torch.profiler import record_function
 
-    hook, take0, in_hook = cl.hook_compress_labels, cl.take0, [False]
+    # The hook rounds run eagerly (hook_rounds, or hook_compress_labels in a
+    # checkout before the stage graphs). A checkout that replays the
+    # timestep's stages as CUDA graphs launches the flip gathers from the
+    # graph, where no Python range reaches: its flip-gathers range reads 0.
+    hook_name = "hook_rounds" if hasattr(cl, "hook_rounds") else "hook_compress_labels"
+    hook, take0, in_hook = getattr(cl, hook_name), cl.take0, [False]
 
     def hook_ranged(*a, **k):
         in_hook[0] = True
@@ -229,10 +234,12 @@ def main() -> None:
         with record_function("labels: flip gathers"):
             return take0(*a, **k)
 
-    cl.hook_compress_labels, cl.take0 = hook_ranged, take0_ranged
+    setattr(cl, hook_name, hook_ranged)
+    cl.take0 = take0_ranged
     names = ("labels: hook_compress_labels", "labels: flip gathers")
     total, ranges, n_events, k4, carry = device_ms(lambda: sweeps(1), 4, names)
-    cl.hook_compress_labels, cl.take0 = hook, take0
+    setattr(cl, hook_name, hook)
+    cl.take0 = take0
     out["sse_device_ms_per_sweep"] = total
     out["sse_device_events_per_sweep"] = n_events
     out["sse_k4_kernels_device_ms_per_sweep"] = k4
