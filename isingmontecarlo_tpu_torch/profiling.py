@@ -33,7 +33,18 @@ path under ``host_reads.<site>`` (``labels``, ``fits``, ``grow``,
 ``flags``, ``parity_swaps``, ``tempering_step``), each collective under
 ``dist.<tag>.calls`` and ``dist.<tag>.bytes``, and each run of a stage of
 the SSE timestep under ``sse.graph.replays``, ``sse.graph.captures`` or
-``sse.graph.eager`` (``sse/graphs.py``).
+``sse.graph.eager`` (``sse/graphs.py``), and each heat-bath diagonal
+update under ``sse.diagonal.heatbath`` (``sweep``, on the host, whether the
+stage replays or runs eagerly).
+
+**Device time by stage.** A span holds the host's runtime calls that
+launch the stage's work (``cudaLaunchKernel``, ``cudaGraphLaunch``, the
+copies), so the device operations a span caused are those whose
+correlation id (``correlation_id()`` of the profiler's events) is that of
+a runtime call inside it: under graphs a stage's span times only the
+host's waits, and this attribution gives its time on the card. The
+benchmark attributes a traced slice's device time to ``sse.diagonal`` and
+``sse.cluster`` so (``benchmark/engines/sse_graph_heatbath.py``).
 """
 
 from __future__ import annotations

@@ -177,6 +177,8 @@ def sweep(sse: SseState, beta, model: BondModel, draws: Draws,
     by_cutoff = stage.resized((M, None, None))
     with profiling.span("sse.sweep"):
         with profiling.span("sse.diagonal"):
+            if heatbath:
+                profiling.count("sse.diagonal.heatbath")
             u = draws.diagonal((3, M, R))
             ops = by_cutoff("diagonal", diagonal_update, ops, state, beta, u, model, hb,
                             heatbath, bond_scale, bond_xor)
